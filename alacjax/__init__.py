@@ -1,4 +1,4 @@
-"""alacjax — TPU-native Apple Lossless (ALAC) batch codec.
+"""alacjax — batched Apple Lossless (ALAC) codec on the GPU.
 
 From-scratch JAX/Pallas rebuild of the ALAC encoder/decoder pipeline
 (see SURVEY.md for the structural analysis of the reference).

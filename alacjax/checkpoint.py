@@ -1,6 +1,6 @@
 """Checkpoint / resume for long batch conversions (SURVEY.md §5).
 
-The reference has no checkpointing; the TPU rebuild's unit of recovery is
+The reference has no checkpointing; the batched rebuild's unit of recovery is
 the packet shard: a preempted job resumes at chunk granularity.  The
 journal design keeps the invariant that everything written is complete:
 

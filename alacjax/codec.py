@@ -1,4 +1,4 @@
-"""Batched TPU codec pipeline — the device-side ALACEncoder/ALACDecoder.
+"""Batched device codec pipeline — the device-side ALACEncoder/ALACDecoder.
 
 This is the performance path (SURVEY.md §7): whole batches of frames
 encode/decode in parallel on one chip.  Per frame-lane it reproduces the
@@ -53,7 +53,9 @@ from .types import (
     DENSHIFT_DEFAULT, AlacConfig, AlacParamError, kALACMaxCoefs,
 )
 
-DEFAULT_CHUNK = 256  # frames per jit invocation (padded; 2 compiles/config)
+# frames per jit invocation (padded; 2 compiles/config).  The default
+# dates from before the GPU port and has not been re-measured on the H100.
+DEFAULT_CHUNK = 256
 
 
 def _merge_radix() -> int:
@@ -202,30 +204,6 @@ def _search_channels(streams, chanbits_list, config, banks=None, nums=None):
                 xs, c0s, orders[0], cb_all, DENSHIFT_DEFAULT,
                 mb0, pb, kb, wb, num=num_all)
             c2_all = None
-        elif predict._cost_kernel_ok(xs, orders[0], chanbits_list[0],
-                                     DENSHIFT_DEFAULT):
-            # Mosaic path: one kernel call PER ORDER with a static
-            # numactive instead of one stacked per-lane-order call.  A
-            # static order compiles a body with no per-lane masks (top
-            # is lags[na], no k<na selects) and an na_max-sized FIR/
-            # adaptation walk — the order-4 half of the grid runs a
-            # ~half-size body.  The grid-step count is identical (the
-            # kernels are issue-bound per step, not launch-bound), so
-            # the smaller bodies are pure win: search 15.7 -> ~11 ms
-            # @B=4096 (r5 A/B).  Off-TPU the stacked per-lane scan
-            # below stays (fewer sequential XLA scans wins there).
-            parts = []
-            for oi, od in enumerate(orders):
-                sl = slice(oi * W * B, (oi + 1) * W * B)
-                parts.append(predict.pc_block_cost2(
-                    xs[sl], c0s[sl], od,
-                    cb_all if uniform_cb else cb_all[sl],
-                    DENSHIFT_DEFAULT, mb0, pb, kb, wb, na_max=od,
-                    num=None if num_all is None else num_all[sl]))
-            res_all = jnp.concatenate([p[0] for p in parts], axis=0)
-            c1_all = jnp.concatenate([p[1] for p in parts], axis=0)
-            c2_all = jnp.concatenate([p[2] for p in parts], axis=0)
-            coefs_all = jnp.concatenate([p[3] for p in parts], axis=0)
         else:
             na = jnp.concatenate(
                 [jnp.full((W * B,), od, dtype=I32) for od in orders], axis=0)
@@ -377,8 +355,7 @@ def _emit_block_n(fields, d: int, start_bits, nf_lane):
 
 
 def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
-                          banks=None, stop_at: str | None = None,
-                          nums=None):
+                          banks=None, nums=None):
     """Packet assembly without any large scatter, all configs.
 
     Every stream's absolute bit offset is computable before emission
@@ -531,9 +508,6 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                 e["mixres_win"] = jnp.zeros((B,), dtype=I32)
                 e["streams"] = [e["his"][0]]
 
-        if stop_at == "mix":  # profiling truncation (prof_trunc.py)
-            return [e["streams"] for e in elems]
-
         # ---- pass 1c: ONE stacked search over every channel ----
         all_streams, all_cb, all_banks = [], [], []
         for e in elems:
@@ -603,9 +577,6 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
         start = start + e["elem_bits"]
     total_c = start
 
-    if stop_at == "search":  # profiling truncation (prof_trunc.py)
-        return ([e["res_win"] for e in elems], total_c)
-
     # ---- pass 2a: ONE stacked Rice emission over every channel ----
     # (absolute start offsets are closed-form in the search results)
     rice_feed, rice_starts, rice_cb = [], [], []
@@ -649,9 +620,6 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     with jax.named_scope("alacjax.rice_words"):
         cw_all, ck_all, _, ctv_all, ctk_all = jax.lax.cond(
             any_comp, emit_rice, skip_rice)
-
-    if stop_at == "rice":  # profiling truncation (prof_trunc.py)
-        return (cw_all, ck_all, ctv_all, ctk_all, total_c)
 
     # ---- pass 2b: emission ----
     # Big chunk arrays carry only COMPLETE words (strictly increasing
@@ -814,10 +782,6 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                         jnp.uint32(0xFFFFFFFF))]
     total_bits = total_c + 3  # byte-align pad bits are zeros: no emission
 
-    if stop_at == "assemble":  # profiling truncation (prof_trunc.py)
-        vals, keys, tail_v, tail_k = mixed_chunks()
-        return (vals, keys, tail_v + end_tv, tail_k + end_tk, total_bits)
-
     def assemble_mixed():
         vals, keys, tail_v, tail_k = mixed_chunks()
         with jax.named_scope("alacjax.merge_chunks"):
@@ -926,8 +890,8 @@ def encode_frames_device(pcm, config: AlacConfig, num_words: int):
 
 
 def encode_stream_device(pcm, config: AlacConfig, num_words: int):
-    """Persistent-coefficient stream encode at device speed (VERDICT r01
-    item 6; reference: ALACEncoder.cpp mCoefsU/V members surviving across
+    """Persistent-coefficient stream encode at device speed
+    (reference: ALACEncoder.cpp mCoefsU/V members surviving across
     packets).
 
     (B, N, C, S) planar int32 — B independent streams of N packets each —
@@ -995,8 +959,7 @@ def _decode_params_static(words, is_cpe: bool,
     bit offsets; channel 1's offset depends only on order0 (5 bits, 18
     legal values), so its 17 fields come from a static 16-bit-stride
     field table selected per lane by order0 — ~300 cheap (B,) selects
-    replace the ~10 ms of per-lane gathers the generic path paid
-    (measured by prof_trunc.py).  max_ord widens the accepted order
+    replace per-lane gathers.  max_ord widens the accepted order
     range and the coef tables (30 for the lazy high-order retry
     program).  Returns (params list, end bits relative to the element
     start sans the partial numSamples field, err)."""
@@ -1071,25 +1034,14 @@ def _unescape_window(words, pos_esc, depth: int, nch: int, S: int):
     return [f[:, ci::nch] for ci in range(nch)]
 
 
-def _stacked_decode(n_chan_total: int, stop_at) -> bool:
+def _stacked_decode() -> bool:
     """Whether decode runs the cursor+stacked two-pass: a cheap
     Rice-cursor scan per channel breaks the cross-channel chain, then
-    ONE stacked fused scan reconstructs every channel.
-
-    Measured OFF by default at EVERY layout (1x TPU v5e, 2026-08-21,
-    B=1024 16-bit 5.1): stacked 6,009 f/s (dec 7,187) vs chained
-    10,182 f/s (dec 14,148) — the 5 cursor scans still pay the full
-    window-fetch + cache-refill machinery per sample (only the FIR walk
-    is saved), and the 6B-lane stacked scan's wider carry costs more
-    per step, so the two-pass loses ~1.9x even where the chain is
-    longest; 2ch measured the same way in r4.  What DID win for
-    multichannel is doubling the substep count (G=16) of the chained
-    scans: 11,654 f/s (+14%) — see _decode_g.  ALACJAX_DECODE_STACKED=1
-    opts in (A/B knob; bit-identical, kept tested like the parked
-    Mosaic decode kernel).  The stop_at profiling truncations keep the
-    chained program."""
-    if stop_at is not None:
-        return False
+    ONE stacked fused scan reconstructs every channel.  Off by default:
+    it lost to the chained scans at every layout before the GPU port
+    (the cursor scans pay the full window-fetch and refill per sample)
+    and has not been measured on the H100.  ALACJAX_DECODE_STACKED=1
+    opts in (bit-identical, kept tested)."""
     import os
     return os.environ.get("ALACJAX_DECODE_STACKED") == "1"
 
@@ -1097,19 +1049,15 @@ def _stacked_decode(n_chan_total: int, stop_at) -> bool:
 def _decode_g(n_chan_total: int) -> int | None:
     """Per-layout default for the decode scans' substeps-per-step (G).
 
-    Stereo/mono keep G=8 (the r4 sweet spot: G=16's bigger step body
-    splits into proportionally more fusions).  Multichannel layouts
-    (>= 3 chained scans) default to G=16 — measured +14% at 5.1/B=1024
-    (10,182 -> 11,654 f/s; decode 14,148 -> 17,078): with the per-step
-    fixed cost (refill + launch) paid once per G samples across 6
-    serial scans, halving the step count beats the body growth.
-    ALACJAX_DECODE_G overrides everywhere (tests pin G=2 for CPU
-    compile time)."""
+    Stereo/mono keep G=8; multichannel layouts (>= 3 chained scans)
+    default to G=16, which halves the step count of six serial scans at
+    the price of a larger step body.  Both defaults date from before the
+    GPU port and have not been re-measured on the H100.  ALACJAX_DECODE_G
+    overrides everywhere (tests pin G=2 for CPU compile time)."""
     return 16 if n_chan_total >= 3 else None
 
 
 def decode_frames_device(words, config: AlacConfig, num_samples: int,
-                         stop_at: str | None = None,
                          taps: int | None = 8):
     """Jit core: (B, W) word image -> ((B, C, S) pcm, (B,) err flags).
 
@@ -1126,15 +1074,9 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     starts where channel c's ends), exactly like the reference's
     serial element loop (codec/ALACDecoder.cpp :: Decode) but batched
     across lanes.  Multichannel layouts run the scans at G=16
-    substeps/step (_decode_g, measured +14% at 5.1).  An alternative
-    cursor+stacked two-pass (break the chain with cheap Rice-cursor
-    scans, then ONE stacked fused scan over all channels) measured
-    ~1.9x SLOWER at every layout and is parked opt-in
-    (ALACJAX_DECODE_STACKED=1, see _stacked_decode).
-
-    stop_at truncates the program for in-context profiling
-    (prof_trunc.py): "params" stops after header/param parsing,
-    "scan" after the fused scans, "nounesc" skips escape extraction."""
+    substeps/step (_decode_g).  An alternative cursor+stacked two-pass
+    (break the chain with cheap Rice-cursor scans, then ONE stacked
+    fused scan over all channels) is opt-in (_stacked_decode)."""
     B = words.shape[0]
     S = num_samples
     depth = config.bit_depth
@@ -1143,7 +1085,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     wb = (1 << kb) - 1
 
     n_chan_total = sum(w for _, w in config.elements)
-    stacked = _stacked_decode(n_chan_total, stop_at)
+    stacked = _stacked_decode()
     elems_meta = []     # stacked mode: per-element post-scan work
     chan_entries = []   # stacked mode: per-channel scan inputs
     ch_seen = 0
@@ -1207,8 +1149,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
             # later elements start at a per-lane dynamic offset: ONE
             # window gather aligns the element (sans the partial field)
             # to bit 0 and the SAME gather-free static parse applies —
-            # replaces the per-channel per-field _peek32 gathers the
-            # generic path used to pay (~10 ms/element, prof_trunc)
+            # replaces per-channel per-field _peek32 gathers
             deep = 39 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord)
                                    + 1)
             w_hdr = bitpack.extract_segment(words, pos_esc - 23,
@@ -1239,9 +1180,6 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         pos_shift = bitpos
         shift_bits_total = width * 8 * bs * num
         bitpos = bitpos + jnp.where(esc, 0, shift_bits_total)
-
-        if stop_at == "params":  # profiling truncation
-            return params, (bitpos, err)
 
         all_esc = jnp.all(esc)
 
@@ -1309,14 +1247,10 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
             return tuple(jnp.zeros((B, S), I32) for _ in range(width)) + (
                 bitpos, jnp.zeros((B,), bool))
 
-        if stop_at == "scan":  # profiling truncation
-            res_t = jax.lax.cond(all_esc, skip_scans, run_scans)
-            return list(res_t[:width]), (res_t[width], err | res_t[width + 1])
-
         # Shift side-channel re-insert + unmix ride INSIDE the same
-        # all-escape cond as the scans (no extra dispatch — each cond
-        # costs ~2 ms): all-escape batches (noise) skip the shift-block
-        # window+unpack and the unmix entirely.  The block is contiguous
+        # all-escape cond as the scans (no extra dispatch): all-escape
+        # batches (noise) skip the shift-block window+unpack and the
+        # unmix entirely.  The block is contiguous
         # (channel-interleaved 8*bs-bit fields), so ONE phase-aligned
         # window + periodic unpack replaces the per-sample-per-channel
         # _peek32 gathers.
@@ -1348,11 +1282,6 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
 
         # escape lanes: raw samples at static stride from pos_esc
         esc_end = pos_esc + width * depth * num
-        if stop_at == "nounesc":  # profiling truncation
-            out_ch.extend(dec)
-            bitpos = jnp.where(esc, esc_end, bitpos)
-            continue
-
         def with_unesc():
             if fast_hdr:
                 # single element: the raw block's offset is static (23,
@@ -1467,15 +1396,29 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
 FRAMES_AXIS = "frames"  # mesh axis name for frame-parallel sharding
 
 
+def shard_frames(fn, mesh, out_specs=None):
+    """Run ``fn`` per shard of the frames axis.  The compiler cannot
+    partition a Pallas kernel, so the sharded programs are written per
+    shard with ``shard_map``; every codec array is batch-leading and
+    per-lane pure, so by default each input and output is split on axis
+    0.  Reductions across shards (``lax.psum``) go in ``fn`` itself,
+    outside the kernels."""
+    from jax.sharding import PartitionSpec
+    spec = PartitionSpec(FRAMES_AXIS)
+    return jax.shard_map(fn, mesh=mesh, in_specs=spec,
+                         out_specs=spec if out_specs is None else out_specs,
+                         check_vma=False)
+
+
 class JaxCodec:
     """Compiled batched codec for one AlacConfig (+ frame batch size).
 
     With ``mesh`` (a 1-D ``jax.sharding.Mesh`` over the frames axis) the
     compiled programs shard every frame batch across the mesh's devices —
-    the kernels are per-frame-lane pure, so XLA partitions them with no
-    steady-state collectives and the packet bytes are unchanged (tested
-    byte-identical to the single-device codec).  ``chunk`` rounds up to a
-    mesh multiple; host blocks are always padded to ``chunk``, so every
+    the programs are per-frame-lane pure, so each runs per shard under
+    ``shard_map`` with no collectives, and the packet bytes are unchanged
+    (tested byte-identical to the single-device codec).  ``chunk`` rounds
+    up to a mesh multiple; host blocks are always padded to ``chunk``, so every
     dispatched array divides evenly across devices.
     """
 
@@ -1489,6 +1432,9 @@ class JaxCodec:
         S = config.frame_length
         self.num_words = (config.max_escape_packet_bytes(S) + 3) // 4 + 2
         self._exe = {}
+        # lanes decode_frames_ex handed to the host oracle (a correct
+        # device path leaves this at 0 on its own encoder's output)
+        self.oracle_fallback_lanes = 0
         if mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec
             # every codec array is batch-leading, so ONE spec (shard axis
@@ -1505,8 +1451,8 @@ class JaxCodec:
     def _jit(self, fn):
         if self._shard is None:
             return jax.jit(fn)
-        return jax.jit(fn, in_shardings=self._shard,
-                       out_shardings=self._shard)
+        return jax.jit(shard_frames(fn, self.mesh),
+                       in_shardings=self._shard, out_shardings=self._shard)
 
     def _place(self, x):
         # AOT executables are strict about input shardings: reshard here
@@ -1581,9 +1527,9 @@ class JaxCodec:
                          nums: np.ndarray) -> list[bytes]:
         """(nf, C, S) planar int + (nf,) per-frame sample counts -> list
         of nf packets.  Frames with nums < S encode as partial (tail)
-        frames ON DEVICE, batched with full frames (VERDICT r02 item 3;
-        reference: ALACEncoder.cpp Encode partial-frame path); their
-        samples at index >= nums must be zero (callers pad)."""
+        frames ON DEVICE, batched with full frames (reference:
+        ALACEncoder.cpp Encode partial-frame path); their samples at
+        index >= nums must be zero (callers pad)."""
         S = self.config.frame_length
         nf = pcm.shape[0]
         packets = []
@@ -1660,6 +1606,9 @@ class JaxCodec:
                     nums[off:off + n][fixed] = np.asarray(num_r)[:n][fixed]
                     err = err & ~fixed
             if err.any():
+                # lanes the device flagged (policy: DSE/FIL elements,
+                # mismatched layouts, corruption) re-decode on the host
+                self.oracle_fallback_lanes += int(err.sum())
                 dec = OracleDecoder(cfg)
                 for j in np.nonzero(err)[0]:
                     y, got = dec.decode_packet(blk[j])
@@ -1727,8 +1676,8 @@ def _codec_key_config(config: AlacConfig) -> AlacConfig:
     """Normalize cookie-only fields before keying the codec cache:
     sample_rate / maxFrameBytes / avgBitRate never enter the packet
     math, so files differing only in them share ONE compiled
-    executable (first-compile on TPU is tens of seconds; without this,
-    decoding two files with different bit-rate stats compiled twice)."""
+    executable (without this, decoding two files with different
+    bit-rate stats compiled twice)."""
     import dataclasses
     return dataclasses.replace(config, sample_rate=44100,
                                max_frame_bytes=0, avg_bit_rate=0)

@@ -2,7 +2,7 @@
 
 Rebuild of the reference CLI's encode/decode loops (convert-utility/
 main.cpp; SURVEY.md §3.1/§3.2), with a pluggable packet-codec backend:
-'oracle' (scalar host reference) or 'jax' (batched TPU path, registered by
+'oracle' (scalar host reference) or 'jax' (batched device path, registered by
 alacjax.codec when imported).
 """
 

@@ -1,6 +1,6 @@
 """Vectorized bitstream assembly: token streams -> packed uint32 words.
 
-This is the TPU-native replacement for the reference's bit-serial
+This is the vectorized replacement for the reference's bit-serial
 BitBuffer writes (SURVEY.md §5/§7): an exclusive prefix-sum over token
 bit-lengths yields every token's absolute bit offset; each token then
 contributes to at most two 32-bit words (value split by the offset's
@@ -62,7 +62,7 @@ def assemble(vals, lens, num_words: int):
     # Per-lane scatter-add into the word image: the bit regions are
     # disjoint, so add == or.  (An alternative formulation exploiting the
     # monotone token->word mapping — cumsum + searchsorted + boundary
-    # differences — was A/B'd end-to-end and lost: 637 -> 426 frames/s.)
+    # differences — lost an end-to-end A/B before the GPU port.)
     def pack_lane(w_idx, hi_v, lo_v):
         out = jnp.zeros((num_words,), dtype=U32)
         # token offsets are monotone, so both index streams are sorted
@@ -210,7 +210,7 @@ def combine_chunks(words, keys, num_words: int, max_dups: int = 8):
     word index appears at least once and at most a few times (segment
     boundary words shared between header/channel/END streams, whose set
     bits are disjoint, so duplicate values combine by addition).  Sort by
-    key (XLA's TPU sort is ~free at these shapes), chain-merge duplicate
+    key, chain-merge duplicate
     runs into their first occurrence, then reconstruct positionally: after
     sorting, the entry for word j sits at position j + (#duplicate extras
     before j) <= j + max_dups, so max_dups+1 static shifts recover it.
@@ -273,17 +273,6 @@ def combine_chunks(words, keys, num_words: int, max_dups: int = 8):
     return jnp.where(over[:, None], ~out, out)
 
 
-def _pallas_merge_enabled() -> bool:
-    """Pallas compaction on real TPU backends; XLA shuffle on CPU (the
-    test tier) unless ALACJAX_PALLAS_MERGE forces either way."""
-    import os
-    env = os.environ.get("ALACJAX_PALLAS_MERGE")
-    if env is not None:
-        return env == "1"
-    import jax as _jax
-    return _jax.default_backend() not in ("cpu",)
-
-
 def merge_sorted_chunks(vals, keys, tail_vals, tail_keys, num_words: int,
                         radix_bits: int = 2):
     """Compact per-lane sorted sparse chunk streams into a dense word
@@ -307,53 +296,42 @@ def merge_sorted_chunks(vals, keys, tail_vals, tail_keys, num_words: int,
     digit at a time is collision-free (if positions p_i..p_j collided at
     digit r, floor(d_i/R^r) - floor(d_j/R^r) = t_j - t_i > 0 would
     contradict d non-decreasing).  ~log_R(T) rounds of static shifted
-    selects — no sort, no scatter, no gather; replaces the measured
-    134 ms sort+dedup with ~30 ms at the headline shape (B=4096,
-    T=16431).
-
-    On TPU the compaction runs as a Pallas kernel (ops/pallas/merge.py:
-    row tiles live in VMEM for all radix rounds — one HBM read + one
-    write); elsewhere (CPU test tier) the same shuffle runs as XLA ops.
+    selects — no sort, no scatter, no gather.
     """
     B, T = vals.shape
     val = vals.astype(U32)
     k = keys.astype(U32)
 
-    use_pallas = (_pallas_merge_enabled() and B % 8 == 0)
-    if use_pallas:
-        from .pallas.merge import merge_compact_pallas
-        out = merge_compact_pallas(val, k, num_words)
-    else:
-        nonempty = k != jnp.uint32(0xFFFFFFFF)
-        j = iota1(T, I32)[None, :]
-        # rank == key under the invariant above (the i-th non-empty slot
-        # holds exactly word i), so no prefix count is needed
-        rem = jnp.where(nonempty, j - k.astype(I32), 0)
-        val = jnp.where(nonempty, val, 0)
+    nonempty = k != jnp.uint32(0xFFFFFFFF)
+    j = iota1(T, I32)[None, :]
+    # rank == key under the invariant above (the i-th non-empty slot
+    # holds exactly word i), so no prefix count is needed
+    rem = jnp.where(nonempty, j - k.astype(I32), 0)
+    val = jnp.where(nonempty, val, 0)
 
-        R = 1 << radix_bits
-        shift = 0
-        while (1 << shift) < T:
-            p = 1 << shift
-            digit = (rem >> shift) & (R - 1)
-            nv = jnp.where(digit == 0, val, 0)
-            nr = jnp.where(digit == 0, rem, 0)
-            for kk in range(1, R):
-                d = kk * p
-                if d >= T:
-                    break
-                dk = jnp.pad(digit[:, d:], ((0, 0), (0, d)))
-                vk = jnp.pad(val[:, d:], ((0, 0), (0, d)))
-                rk = jnp.pad(rem[:, d:], ((0, 0), (0, d)))
-                hit = dk == kk
-                nv = nv | jnp.where(hit, vk, 0)
-                nr = nr + jnp.where(hit, rk - d, 0)
-            val, rem = nv, nr
-            shift += radix_bits
+    R = 1 << radix_bits
+    shift = 0
+    while (1 << shift) < T:
+        p = 1 << shift
+        digit = (rem >> shift) & (R - 1)
+        nv = jnp.where(digit == 0, val, 0)
+        nr = jnp.where(digit == 0, rem, 0)
+        for kk in range(1, R):
+            d = kk * p
+            if d >= T:
+                break
+            dk = jnp.pad(digit[:, d:], ((0, 0), (0, d)))
+            vk = jnp.pad(val[:, d:], ((0, 0), (0, d)))
+            rk = jnp.pad(rem[:, d:], ((0, 0), (0, d)))
+            hit = dk == kk
+            nv = nv | jnp.where(hit, vk, 0)
+            nr = nr + jnp.where(hit, rk - d, 0)
+        val, rem = nv, nr
+        shift += radix_bits
 
-        if T < num_words:
-            val = jnp.pad(val, ((0, 0), (0, num_words - T)))
-        out = val[:, :num_words]
+    if T < num_words:
+        val = jnp.pad(val, ((0, 0), (0, num_words - T)))
+    out = val[:, :num_words]
 
     jq = iota1(num_words, U32)[None, :]
     for t in range(tail_vals.shape[1]):

@@ -2,12 +2,11 @@
 
 The reference decodes a channel in three serial passes over the frame
 (codec/ag_dec.c :: dyn_decomp, then codec/dp_dec.c :: unpc_block once or
-twice for the mode!=0 cascade).  On TPU each pass is a sequential scan,
-and decode was ~55% of steady-state time, so this module fuses all three
-into ONE scan: every substep decodes one Rice residual (or consumes one
-sample of a pending zero run), feeds it through the first-difference
-stage (mode != 0) and the adaptive FIR in the same step, and emits the
-reconstructed sample.  Consequences:
+twice for the mode!=0 cascade).  Each pass is a sequential scan, so
+this module fuses all three into ONE scan: every substep decodes one
+Rice residual (or consumes one sample of a pending zero run), feeds it
+through the first-difference stage (mode != 0) and the adaptive FIR in
+the same step, and emits the reconstructed sample.  Consequences:
 
   * one scan instead of two-to-three per channel;
   * outputs are dense and in order (exactly one sample per substep), so
@@ -15,12 +14,10 @@ reconstructed sample.  Consequences:
   * the intermediate residual array never exists.
 
 Bit reads: substeps share a sliding block cache refilled by ONE 8-word
-row gather per scan step (per-lane dynamic gathers cost ~2 elements per
-cycle on TPU, so gathered words are the scan's dominant cost — the
-fixed-rate single-row refill halved the measured scan time vs fetching
-the worst-case two rows).  One row per step sustains 256/G bits per
-sample, above the largest legal codeword (8+1+kb compressed, 9+chanbits
-escape), so the cursor can only outrun the prefetch through the
+row gather per scan step (a fixed-rate single-row refill instead of
+fetching the worst-case two rows).  One row per step sustains 256/G
+bits per sample, above the largest legal codeword (8+1+kb compressed,
+9+chanbits escape), so the cursor can only outrun the prefetch through the
 adversarial zero-length-run pattern; a per-step drift check flags such
 lanes with the error bit and the host re-decodes them on the oracle.
 Each substep performs ONE relative-index window fetch (4 consecutive
@@ -88,9 +85,9 @@ def _fetch_window4(blk, rel, max_rel):
 def _win_read32(ws, off):
     """32 bits at bit offset ``off`` (0..95) within the 128-bit window.
 
-    (32 - x) & 31 == (32 - x) % 32 for x in [0, 32] — the & spelling is
-    used throughout this module because the shared substep also lowers
-    through Mosaic (ops/pallas/decode_step.py), which has no rem op."""
+    (32 - x) & 31 == (32 - x) % 32 for x in [0, 32]; the mask keeps every
+    shift amount below 32 (a shift by 32 is undefined in the GPU
+    kernel, ops/pallas/decode_step.py)."""
     idx = off >> 5
     a = jnp.where(idx == 0, ws[0], jnp.where(idx == 1, ws[1], ws[2]))
     b = jnp.where(idx == 0, ws[1], jnp.where(idx == 1, ws[2], ws[3]))
@@ -103,19 +100,19 @@ def _win_read32(ws, off):
 def _win_bits(ws, off, nbits):
     stream = _win_read32(ws, off)
     nb = jnp.asarray(nbits, dtype=U32)
-    nb_c = jnp.where(nb > 31, jnp.uint32(31), nb)   # Mosaic: no minui
+    nb_c = jnp.minimum(nb, jnp.uint32(31))
     mask = jnp.where(nb >= 32, jnp.uint32(0xFFFFFFFF),
                      jnp.left_shift(_U32_ONE, nb_c) - 1)
     return jnp.right_shift(stream, (32 - nb) & jnp.uint32(31)) & mask
 
 
 def _rice_substep(st, blk, blk_base, g, *, S, chanbits, chanbits_max,
-                  pb_v, kb, wb, zero, rel0, cache_words, num=None,
-                  clz=clz32):
-    """One Rice-cursor substep of the fused decode scan: decodes one residual codeword (or consumes one
-    pending zero-run sample) and advances (bitpos, mb, zmode, run_rem,
-    c, err).  ``chanbits`` may be per-lane (B,) (stacked channels of
-    mixed SCE/CPE elements); ``chanbits_max`` is its static bound
+                  pb_v, kb, wb, zero, rel0, cache_words, num=None):
+    """One Rice-cursor substep of the fused decode scan: decodes one
+    residual codeword (or consumes one pending zero-run sample) and
+    advances (bitpos, mb, zmode, run_rem, c, err).  ``chanbits`` may be
+    per-lane (B,) (stacked channels of mixed SCE/CPE elements);
+    ``chanbits_max`` is its static bound
     (sizes the window reach).  ``rel0`` is the static bound on the
     cursor's cache-relative word index at substep 0 (the refill's drift
     budget); ``cache_words`` the cache size.
@@ -139,11 +136,11 @@ def _rice_substep(st, blk, blk_base, g, *, S, chanbits, chanbits_max,
     woff = (off0 & 31).astype(I32)
 
     m0 = mb >> QBSHIFT
-    k = jnp.minimum(31 - clz(m0 + 3), kb)               # lg3a(m0)
+    k = jnp.minimum(31 - clz32(m0 + 3), kb)               # lg3a(m0)
     m = jnp.left_shift(_U32_ONE, k.astype(U32)) - 1
 
     stream = _win_read32(ws, woff)
-    pre = clz(~stream)
+    pre = clz32(~stream)
     esc = pre >= MAX_PREFIX_32
     v = jnp.right_shift(jnp.left_shift(stream, (pre + 1).astype(U32)),
                         ((32 - k) & 31).astype(U32))
@@ -168,18 +165,18 @@ def _rice_substep(st, blk, blk_base, g, *, S, chanbits, chanbits_max,
     trigger = decode_now & ((mb_upd << MMULSHIFT) < QB) & (c1 < n_eff)
 
     # zero-run codeword (speculative; used when trigger)
-    kz = (clz(mb_upd) - 24
+    kz = (clz32(mb_upd) - 24
           + ((mb_upd + jnp.uint32(16)) >> 6).astype(I32))
     mz = (jnp.left_shift(_U32_ONE, kz.astype(U32)) - 1) & jnp.uint32(wb)
     off2 = woff + adv
     stream2 = _win_read32(ws, off2)
-    pre2 = clz(~stream2)
+    pre2 = clz32(~stream2)
     esc2 = pre2 >= MAX_PREFIX_16
     v2 = jnp.right_shift(jnp.left_shift(stream2, (pre2 + 1).astype(U32)),
                          ((32 - kz) & 31).astype(U32))
     v2ge2 = v2 >= 2
     nz_plain = (pre2.astype(U32)
-                * jnp.where(mz == 0, _U32_ONE, mz)   # Mosaic: no maxui
+                * jnp.maximum(mz, _U32_ONE)
                 + jnp.where((kz != 1) & v2ge2, v2 - 1, jnp.uint32(0)))
     adv2_plain = pre2 + 1 + jnp.where(kz != 1,
                                       jnp.where(v2ge2, kz, kz - 1), 0)
@@ -213,12 +210,11 @@ def _rice_substep(st, blk, blk_base, g, *, S, chanbits, chanbits_max,
 
 def _substep_core(st, pred_st, blk, blk_base, g, *, nk, S, chanbits,
                   cb_max, pb_v, kb, wb, rel0, cache_words, num,
-                  na_eff, den, denhalf, mode_nz, is0, is31, r_rows=None,
-                  clz=clz32):
+                  na_eff, den, denhalf, mode_nz, is0, is31, r_rows=None):
     """One fused decode substep: Rice codeword decode + inverse
     predictor (dp_dec.c :: unpc_block + the mode-31 first-difference
     stage), shape-agnostic elementwise — the SAME function body serves
-    the XLA scan step and the Mosaic step kernel
+    the XLA scan step and the GPU step kernel
     (ops/pallas/decode_step.py), so kernel parity is by construction.
 
     st = (bitpos i32, mb u32, zmode u32, run_rem u32, c i32, err bool);
@@ -235,7 +231,7 @@ def _substep_core(st, pred_st, blk, blk_base, g, *, nk, S, chanbits,
     st2, res, active = _rice_substep(
         st, blk, blk_base, g, S=S, chanbits=chanbits,
         chanbits_max=cb_max, pb_v=pb_v, kb=kb, wb=wb, zero=zero,
-        rel0=rel0, cache_words=cache_words, num=num, clz=clz)
+        rel0=rel0, cache_words=cache_words, num=num)
 
     # ---- fused predictor (dp_dec.c :: unpc_block + mode-31 stage) ----
     s1_acc2 = jnp.where(active, s1_acc + res, s1_acc)
@@ -261,8 +257,6 @@ def _substep_core(st, pred_st, blk, blk_base, g, *, nk, S, chanbits,
     new_coefs = list(coefs)
     sg_pos = sg > 0
     for kk in range(nk - 1, -1, -1):
-        # logical form, not where(bool, bool, bool): Mosaic can't
-        # truncate an i8 select result back to i1
         going = (sg_pos & (del0 > 0)) | (~sg_pos & (del0 < 0))
         act_k = adapt & (sg != 0) & going & (kk < na_k)
         dd = top - lags[kk]
@@ -291,7 +285,7 @@ def _substep_core(st, pred_st, blk, blk_base, g, *, nk, S, chanbits,
 
 def _shift_cache(st, ext, blk_base, *, rel0, cache_words, r_rows):
     """Fixed-rate refill bookkeeping shared by the XLA step and the
-    Mosaic step kernel: compute the cache shift from the post-substep
+    GPU step kernel: compute the cache shift from the post-substep
     cursor, flag drift-budget underruns (only reachable via the
     adversarial zero-length-run pattern; such lanes re-decode on the
     host oracle), and shift the extended cache window.
@@ -312,26 +306,14 @@ def _shift_cache(st, ext, blk_base, *, rel0, cache_words, r_rows):
 
 
 def _step_kernel_ok(raw: bool, chanbits, B: int) -> bool:
-    """Route the scan step through the Mosaic step kernel
-    (ops/pallas/decode_step.py) on real TPU backends: the XLA step body
-    compiles to ~19 kLoop fusions per while iteration (launch-bound at
-    ~1.6 us each); the kernel runs the same arithmetic as ONE launch,
-    keeping XLA's per-lane row gather between iterations (gathers are
-    the one thing Mosaic can't do well — the r4 whole-loop kernel died
-    on exactly that, see _decode_kernel_ok).  Static chanbits and
-    128-divisible batches only; ALACJAX_PALLAS_DECODE_STEP forces
-    either way (A/B knob)."""
-    import os
-    env = os.environ.get("ALACJAX_PALLAS_DECODE_STEP")
-    if env is not None:
-        if env != "1":
-            return False
-    else:
-        import jax as _jax
-        if _jax.default_backend() in ("cpu",):
-            return False
-    return (not raw and isinstance(chanbits, (int, np.integer))
-            and B % 128 == 0)
+    """Route the scan step through the GPU step kernel
+    (ops/pallas/decode_step.py): on the GPU backend, for static chanbits
+    and a batch that fills whole lane blocks.  The kernel runs the step
+    body as one launch; the per-lane row gather stays in XLA."""
+    from . import pallas
+    return (pallas.gpu_kernels() and not raw
+            and isinstance(chanbits, (int, np.integer))
+            and B % pallas.LANES == 0)
 
 
 def cursor_scan(words, start_bits, num_samples: int, chanbits,
@@ -339,7 +321,7 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits,
                 skip=None, num=None, g: int | None = None):
     """Rice-cursor-only pass: advance the bit cursor over a channel's
     residual stream WITHOUT reconstructing samples — the cheap first leg
-    of the stacked multichannel decode (VERDICT r4 item 1): channel
+    of the stacked multichannel decode: channel
     c+1's stream starts where channel c's ends (the only cross-channel
     dependency), so a short cursor pass breaks the chain and lets the
     expensive fused scans run stacked across all channels.
@@ -416,27 +398,6 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits,
     return end_bits, final[5] & ~skip
 
 
-def _decode_kernel_ok() -> bool:
-    """Opt-in routing to the K-step Mosaic decode kernel
-    (pallas/decode_pallas.py) via ALACJAX_PALLAS_DECODE=1.
-
-    Measured OFF by default (tools/prof_decode_kernel.py codec, B=4096,
-    1x TPU v5e, 2026-08-20): kernel decode 80.3 ms vs XLA scan 33.8 ms
-    — the amortized-K launch structure loses 2.4x to the plain scan.
-    The per-lane VMEM window shift (cache_words+lookahead selects per
-    step) and the ~100-select fetch tree cost more than the ~46 XLA
-    launches they delete; the XLA scan's fusions also improved under
-    this round's smaller step body.  Parked at parity like
-    predict_pallas.py: bit-identical, tested (interpret on CPU,
-    compiled on TPU), re-evaluate if Mosaic grows a cross-lane gather.
-
-    Only the literal ``1`` opts in; any other value (``true``, ``0``,
-    unset) leaves the default XLA scan — there is no force-off spelling
-    because off IS the default."""
-    import os
-    return os.environ.get("ALACJAX_PALLAS_DECODE") == "1"
-
-
 def _make_cache(words, B):
     """(B, W) word image -> row-fetch helper + padded row view."""
     W = words.shape[1]
@@ -495,11 +456,11 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
 
     cb_max = chanbits_max if chanbits_max is not None else int(chanbits)
     max_adv = MAX_PREFIX_32 + cb_max + MAX_PREFIX_16 + 16
-    # ALACJAX_DECODE_G caps the substeps per scan step: XLA:CPU compile
-    # time is superlinear in the step-body size (~200 s at G=8 vs
-    # seconds at G=2), so the CPU test tier and the multichip dryrun cap
-    # it; results are bit-identical at any G (the cache just refills
-    # more often), and TPU keeps the G=8 throughput sweet spot.
+    # ALACJAX_DECODE_G sets the substeps per scan step: XLA:CPU compile
+    # time is superlinear in the step-body size, so the CPU test tier
+    # sets G=2; results are bit-identical at any G (the cache just
+    # refills more often).  The default of 8 dates from before the GPU
+    # port and has not been re-measured on the H100.
     import os
     G = max(1, int(os.environ.get("ALACJAX_DECODE_G", str(g or 8))))
     n_steps = -(-S // G)
@@ -541,14 +502,6 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
                 wb=wb, rel0=rel0, cache_words=cache_words, r_rows=r_rows,
                 num=num)
     use_kern = _step_kernel_ok(raw, chanbits, B)
-    # steps per kernel launch (A/B knob; bit-identical at any value).
-    # Measured at B=4096 stereo: K=2 +1.2% decode, K=4 +1.4% — the
-    # launch amortization saturates immediately (the serial kernel
-    # compute is the floor), while the traced step body scales with K
-    # and pushed the warm first-call past the 5 s bar (5.9 s at K=2 vs
-    # 4.4 s at K=1).  Default stays 1.
-    K_launch = (max(1, int(os.environ.get("ALACJAX_DECODE_KSTEPS", "1")))
-                if use_kern else 1)
     if use_kern:
         def _bc(a):
             return jnp.broadcast_to(jnp.asarray(a).astype(I32), (B,))
@@ -574,25 +527,19 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     def make_step(nk):
         def step(carry, _):
             if use_kern:
-                # hybrid: XLA does the per-lane row gather (its
-                # strength), ONE Mosaic call runs K steps of G substeps
-                # + FIR + cache shift (ops/pallas/decode_step.py) — the
-                # launch-bound ~19-fusion body becomes ~3 launches per
-                # K iterations.  The K-step prefetch is just the next
-                # K*r_rows CONSECUTIVE rows (the needed row index
-                # advances by the cache shift, <= r_rows/step).
+                # XLA gathers the next r_rows rows per lane, ONE kernel
+                # launch runs the G substeps + FIR + cache shift
                 from .pallas.decode_step import decode_step_pallas
                 st6, base1, blkS, predS = carry
                 ext = ()
-                for j in range(K_launch * r_rows):
+                for j in range(r_rows):
                     ext = ext + fetch_row((base1[0] >> 3) + n_rows + j)
                 extS = jnp.stack([e.astype(I32) for e in ext], axis=0)
                 st6, base1, blkS, predS, y = decode_step_pallas(
                     st6, base1, blkS, extS, predS, par_stack, nk=nk,
                     G=G, S=S, chanbits=chanbits, cb_max=cb_max, kb=kb,
                     wb=wb, rel0=rel0, cache_words=cache_words,
-                    r_rows=r_rows, has_num=num is not None,
-                    K=K_launch)
+                    r_rows=r_rows, has_num=num is not None)
                 return (st6, base1, blkS, predS), y
             st = carry[:_N_RICE - 1]
             blk_base = carry[_N_RICE - 1]
@@ -610,10 +557,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
                 r_rows=r_rows)
             # ONE stacked (G, B) output per step instead of G separate
             # (B,) ys: each y is a dynamic-update-slice in the while
-            # body, and every DUS ends an XLA fusion — G=8 separate
-            # outputs cost ~7 extra kernel launches per iteration in a
-            # body whose runtime is launch-bound (46 fusions/iter
-            # measured on the optimized HLO, r4)
+            # body, and every DUS ends an XLA fusion
             return (st + (blk_base,) + blk2 + pred_st,
                     jnp.stack(outs, axis=0))
         return step
@@ -634,9 +578,9 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
                 for k in range(nk))
             pred_st0 = (zero,) * (nk + 1) + coef_cols0 + (zero, zero)
             if use_kern:
-                # hybrid-kernel carry: row-stacked i32 arrays (the
-                # Mosaic step consumes/produces whole stacks — no
-                # per-iteration jnp.stack of 60+ small arrays)
+                # kernel carry: row-stacked i32 arrays (the kernel
+                # consumes/produces whole stacks — no per-iteration
+                # jnp.stack of 60+ small arrays)
                 st6 = jnp.stack([
                     rice_st0[0], rice_st0[1].astype(I32),
                     rice_st0[2].astype(I32), rice_st0[3].astype(I32),
@@ -647,19 +591,9 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
                           jnp.stack(pred_st0, axis=0))
             else:
                 carry0 = rice_st0 + blk0 + pred_st0
-            # ALACJAX_DECODE_UNROLL: scan unroll factor (bit-identical;
-            # A/B lever for TPU compile time vs dispatch overhead —
-            # VERDICT r02 item 6).  G already amortizes per-step fixed
-            # cost, so the default stays 1.
-            unroll = max(1, int(os.environ.get("ALACJAX_DECODE_UNROLL",
-                                               "1")))
-            # kernel path: K steps per launch -> ceil(n_steps/K) scan
-            # iterations, (K*G, B) samples per iteration (a final
-            # partial launch's extra substeps idle and are truncated)
-            length = -(-n_steps // K_launch)
             final, outs = jax.lax.scan(make_step(nk), carry0, None,
-                                       length=length, unroll=unroll)
-            # outs: (length, K*G, B) -> (B, length*K*G) sample order
+                                       length=n_steps)
+            # outs: (n_steps, G, B) -> (B, n_steps*G) sample order
             out_tg = outs.reshape(-1, B)
             if use_kern:
                 return out_tg.T[:, :S], final[0][0], final[0][5] != 0
@@ -673,13 +607,6 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     if taps is not None:
         nk = min(taps, _MAX_TAPS)
         big = (na > nk) & (na != 31)
-        if not raw and _decode_kernel_ok():
-            from .pallas.decode_pallas import decode_channel_pallas
-            samples, end_bits, err = decode_channel_pallas(
-                words, start_bits, S, chanbits, mb0, pb, kb, wb, coefs0,
-                mode, numactive, denshift, cb_max=cb_max, taps=nk,
-                num=num, G=G)
-            return samples, end_bits, err | big
         samples, end_bits, err = run(nk)()
         return samples, end_bits, err | big
     small = jnp.all((na <= 8) | (na == 31))
@@ -708,18 +635,11 @@ def decode_channel_cached(words, start_bits, num_samples: int, chanbits,
     chained path was paying it per channel.  The inner pjit call is
     inlined by XLA — runtime-identical programs, tested byte-identical.
     Only usable with a STATIC (int) chanbits; per-lane chanbits (the
-    stacked path) falls through to the direct call.
-
-    Env knobs that alter the traced graph are folded into the static
-    key (G) or bypass the cache entirely (the parked Mosaic kernel,
-    non-default unroll) so in-process flag flips — prof_decode_kernel's
-    A/B loops — can't hit a stale trace."""
+    stacked path) falls through to the direct call.  ALACJAX_DECODE_G
+    is folded into the static key."""
     import os
     g = max(1, int(os.environ.get("ALACJAX_DECODE_G", str(g or 8))))
-    env_variant = (_decode_kernel_ok()
-                   or os.environ.get("ALACJAX_DECODE_UNROLL", "1") != "1"
-                   or os.environ.get("ALACJAX_DECODE_KSTEPS", "1") != "1")
-    if not env_variant and isinstance(chanbits, (int, np.integer)):
+    if isinstance(chanbits, (int, np.integer)):
         return _decode_channel_jit(
             words, start_bits, num_samples, int(chanbits), mb0, pb, kb,
             wb, coefs0, mode, numactive, denshift,

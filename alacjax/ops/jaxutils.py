@@ -34,8 +34,9 @@ def sign_of_int(x):
 
 
 def clz32(x):
-    """Count leading zeros of uint32 (lead(); clz(0) == 32)."""
-    return jax.lax.clz(x.astype(U32)).astype(I32)
+    """Count leading zeros of uint32 (lead(); clz(0) == 32).  Counted on
+    the int32 bit pattern: the GPU kernels lower an int32 clz only."""
+    return jax.lax.clz(jax.lax.bitcast_convert_type(x.astype(U32), I32))
 
 
 def lg3a(x):

@@ -1,55 +1,54 @@
-"""Pallas (Mosaic) TPU kernels — production routing map.
+"""Pallas kernels on the Triton route for the GPU's three hot scans.
 
-The launch-bound roofline (docs/PERF_NOTES.md) made hand kernels the
-production TPU path for the two hottest encode scans in round 4; the
-rest are parked with measured reasons.  Per kernel:
+Each kernel runs a sequential recurrence with one thread per frame lane:
+the grid covers lane blocks only, the whole sample loop runs inside one
+program as a ``lax.fori_loop`` with the per-lane state as its carry, and
+arrays are time-major ``(S, L)`` so every step's loads and stores are
+coalesced across a warp.  As XLA while loops the same scans split into
+a dozen or more fusions per sample step, each a kernel launch.
 
-* ``cost_pallas.py`` — **PRODUCTION**: fused predict + dual adaptive-Rice
-  cost search scan (one launch instead of ~21 XLA fusions/iteration;
-  search stage 25.4 -> 12.9 ms @B=4096).  Routed automatically on
-  non-CPU backends by ``ops/predict._cost_kernel_ok``; force either way
-  with ``ALACJAX_PALLAS_COST=1`` / ``=0``.
-* ``emit_pallas.py`` — **PRODUCTION**: Rice emission scan as one launch
-  (26.1 -> 8.7 ms).  Same gate and same ``ALACJAX_PALLAS_COST`` knob
-  (the two kernels share the envelope and are tuned as a pair).
-* ``merge.py`` — **PRODUCTION** on TPU: VMEM chunk-compaction for
-  bitstream merge; forced either way with ``ALACJAX_PALLAS_MERGE``.
-* ``decode_step.py`` — **PRODUCTION** (round 5): ONE Mosaic call per
-  decode-scan iteration runs the G Rice+FIR substeps + cache shift,
-  while the scan and its per-lane row gather stay in XLA (+19% decode,
-  +12.6% end-to-end vs the pure-XLA step; the whole-loop kernel below
-  lost exactly because it swallowed the gather).  It calls the SAME
-  ``fused_decode._substep_core`` the XLA step uses — no second
-  implementation.  ``ALACJAX_PALLAS_DECODE_STEP=0`` reverts;
-  ``ALACJAX_DECODE_KSTEPS`` amortizes launches (measured: saturates at
-  +1.2% while bloating trace time — default 1).
-* ``decode_pallas.py`` — **PARKED, measured loss**: the K-step decode
-  kernel ran 2.4x SLOWER than the stacked XLA decode scan (80.3 ms vs
-  33.8 ms decode @B=4096, tools/prof_decode_kernel.py) — the per-lane
-  window-shift selects cost more than the launches they delete.
-  Opt-in via ``ALACJAX_PALLAS_DECODE=1``; bit-parity stays tested.
-* ``predict_pallas.py`` — **PARKED, obsolete**: the round-1 standalone
-  predictor kernel.  Measured at parity with the XLA scan (both
-  latency-bound on the serial dependency), and structurally superseded
-  by cost_pallas (which fuses the cost machines into the same scan).
-  Opt-in via ``ALACJAX_PALLAS_PREDICT_LEGACY=1`` — enabling it splits
-  the search back into separate scans AND bypasses the production cost
-  kernel (slower by construction; bench: 11.4k -> ~8k frames/s) — kept
-  only as a Mosaic toolchain vehicle.
+* ``cost_pallas.py``: fused predict + one or two adaptive-Rice cost
+  machines (the encoder search).
+* ``emit_pallas.py``: the Rice emission scan (phase-aligned word chunks).
+* ``decode_step.py``: one fused-decode scan step (G Rice+FIR substeps and
+  the cache shift); the scan and its per-lane row gather stay in XLA.
 
-``predict_legacy_enabled()`` gates the last one; the production kernels
-are on by default on TPU and need no flag.
+Every kernel body calls the same step function as its XLA scan
+(``predict._general_step``, ``rice._emit_step``,
+``fused_decode._substep_core``), so parity holds by construction and the
+tests compare the two bit for bit.  Routing depends on the platform and
+the shape only: ``gpu_kernels()`` is true on the GPU backend, and each
+caller's envelope check adds the shape conditions.
 """
 
-import os
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import triton as plt
+
+# Lanes per program: one lane per thread, one warp per program, so the
+# grid is as wide as the lanes allow.  32, 64 and 128 timed the same on
+# the H100 for the cost and emission kernels (PERF.md).
+LANES = 32
 
 
-def predict_legacy_enabled() -> bool:
-    """True only when the obsolete round-1 predictor kernel is forced on
-    (ALACJAX_PALLAS_PREDICT_LEGACY=1).  Production kernels ignore this."""
-    return os.environ.get("ALACJAX_PALLAS_PREDICT_LEGACY", "0") == "1"
+def gpu_kernels() -> bool:
+    """True where the Triton-route kernels run: the GPU backend."""
+    return jax.default_backend() == "gpu"
 
 
-# Back-compat alias for the removed ALACJAX_PALLAS knob (round-1 name
-# whose meaning inverted once cost_pallas became the production path).
-enabled = predict_legacy_enabled
+def compiler_params() -> plt.CompilerParams:
+    """Triton route, one lane per thread, no software pipelining (the
+    loop body is a serial recurrence, not a stream of tile loads)."""
+    return plt.CompilerParams(num_warps=LANES // 32, num_stages=1)
+
+
+def pad_lanes(x, lanes: int, fill=0):
+    """Pad the trailing (lane) axis of ``x`` up to a multiple of
+    ``lanes`` with ``fill``."""
+    pad = (-x.shape[-1]) % lanes
+    if not pad:
+        return x
+    widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
+    return jnp.pad(x, widths, constant_values=fill)

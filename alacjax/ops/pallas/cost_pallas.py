@@ -1,24 +1,21 @@
-"""Pallas kernel for the fused predict + adaptive-Rice-cost scan.
+"""GPU kernel for the fused predict + adaptive-Rice cost scan.
 
-This is the encoder search's hot loop (ops/predict.py :: _scan_general
-with cost_params / dual_cost): the adaptive FIR predictor walk plus one
-or two Rice bit-cost machines per lane, sequential over the sample axis.
+The encoder search's hot loop (ops/predict._scan_general with a cost
+machine, optionally two): per lane, the adaptive FIR predictor walk plus
+one or two Rice bit-cost machines, sequential over the sample axis.  As
+an XLA while loop the step body splits into a dozen or more fusions, and
+each fusion is a kernel launch per sample step.  Here one program owns a
+block of lanes and runs the whole sample loop with the per-lane state
+(2*nk+14 int32 at most) as its loop carry, in registers.
 
-Why a hand kernel when the bare-predict Mosaic kernel parked at parity
-(see __init__.py): the XLA while-loop body of the FUSED scan fragments
-into ~14-21 separate kLoop fusions per iteration (measured on the
-optimized HLO, r4), and the loop's cost is dominated by that per-fusion
-fixed overhead, not by compute.  Inside a Pallas kernel the whole
-sample loop runs as ONE kernel: state lives in VMEM scratch, each
-sample step is straight-line vector code, and there is no per-iteration
-launch cost.  Semantics are bit-identical to the scan (the defining
-scalar references are alacjax/oracle/dp.py :: pc_block and
-alacjax/oracle/ag.py — dp_enc.c / ag_enc.c).
+The body is ``predict._general_step``, the same function the XLA scan
+runs, so the two are bit-identical by construction (the defining scalar
+references are alacjax/oracle/dp.py :: pc_block and alacjax/oracle/ag.py
+— dp_enc.c / ag_enc.c).
 
-Supported shapes: static chanbits/denshift, per-lane or static order
-(<= order bound ``na_max``), optional per-lane sample counts ``num``
-(partial tails), lanes padded to LANE_TILE, S % S_CHUNK == 0.  The
-wrapper in ops/predict.py falls back to the XLA scan off this envelope.
+Envelope: static denshift; static or per-lane order (<= ``na_max``),
+static or per-lane chanbits, optional per-lane sample counts ``num``
+(partial tails); any S; lanes are padded to the block.
 """
 
 from __future__ import annotations
@@ -28,353 +25,79 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ...types import (
-    BITOFF, MAX_PREFIX_16, MAX_PREFIX_32, MAX_RICE_NUMBITS, MDENSHIFT,
-    MMULSHIFT, MOFF, N_MAX_MEAN_CLAMP, N_MEAN_CLAMP_VAL, PBSHIFT, QB,
-    QBSHIFT, kALACMaxCoefs,
-)
-from ..jaxutils import I32, U32
-
-LANE_TILE = 1024          # 8 x 128 lanes per grid step
-S_CHUNK = 512             # samples per grid step
+from ...types import kALACMaxCoefs
+from .. import predict
+from ..jaxutils import I32
+from . import LANES, compiler_params, pad_lanes
 
 
-def _sign(x):
-    return jnp.sign(x).astype(I32)
+def _cost_kernel(x_ref, c0_ref, na_ref, cb_ref, num_ref, res_ref, cost_ref,
+                 cout_ref, *, na_static, nk, chanbits, denshift, cost, dual,
+                 has_num):
+    """One lane block: x (S, LANES) -> residuals (S, LANES), costs
+    (2, LANES), adapted coefficients (16, LANES)."""
+    S = x_ref.shape[0]
+    na = na_static if na_static is not None else na_ref[0, :]
+    cb = chanbits if chanbits is not None else cb_ref[0, :]
+    S_eff = num_ref[0, :] if has_num else S
+    den, denhalf = predict._fir_den(denshift)
+    zero = jnp.zeros((x_ref.shape[1],), I32)
+    carry0 = predict._general_carry0(
+        [c0_ref[k, :] for k in range(nk)], zero, cost=cost, dual=dual)
+    step = functools.partial(
+        predict._general_step, na=na, nk=nk, den=den, denhalf=denhalf,
+        chanbits=cb, decode=False, cost=cost, dual=dual, S_eff=S_eff)
 
+    def body(t, carry):
+        carry, out = step(carry, x_ref[t, :])
+        res_ref[t, :] = out
+        return carry
 
-def _sext(x, bits):
-    """Sign-extend the low ``bits`` bits; ``bits`` may be a static int or
-    a per-lane (8, 128) i32 tile (Mosaic shifts take vector amounts)."""
-    sh = 32 - bits if isinstance(bits, int) else (32 - bits)
-    return jnp.right_shift(jnp.left_shift(x, sh), sh)
-
-
-def _clz32(x):
-    """Count leading zeros of a u32 tile (branchless binary search;
-    Mosaic has no clz primitive)."""
-    x = x.astype(U32)
-    n = jnp.full(x.shape, 32, I32)
-    for sh in (16, 8, 4, 2, 1):
-        big = x >= (jnp.uint32(1) << sh)
-        n = jnp.where(big, n - sh, n)
-        x = jnp.where(big, x >> sh, x)
-    # x is now 0 or 1; subtract the final bit
-    return n - x.astype(I32)
-
-
-def _lg3a(x):
-    return 31 - _clz32(x.astype(U32) + 3)
-
-
-def _divmod_capped(n, m):
-    """min(n // m, 9) and the remainder (exact for quotients <= 8) as a
-    parallel threshold count — same formulation as ops/rice.py."""
-    m2 = m + m
-    m3 = m2 + m
-    m4 = m2 + m2
-    m5 = m4 + m
-    m6 = m4 + m2
-    m7 = m4 + m3
-    m8 = m4 + m4
-    m9 = m8 + m
-    div = ((n >= m).astype(I32) + (n >= m2).astype(I32)
-           + (n >= m3).astype(I32) + (n >= m4).astype(I32)
-           + (n >= m5).astype(I32) + (n >= m6).astype(I32)
-           + (n >= m7).astype(I32) + (n >= m8).astype(I32)
-           + (n >= m9).astype(I32))
-    return div, n - m * div.astype(U32)
-
-
-def _run_kz_mz(mb, wb: int):
-    kz = _clz32(mb) - BITOFF + ((mb + jnp.uint32(MOFF)) >> MDENSHIFT).astype(I32)
-    mz = (jnp.left_shift(jnp.uint32(1), kz.astype(U32)) - 1) & jnp.uint32(wb)
-    return kz, mz
-
-
-def _cost_step_lens(x, t, state, *, S_eff, bit_size: int, pb: int, kb: int,
-                    wb: int):
-    """Cost-only _encode_step_tokens (ops/rice.py): returns
-    (new_state, total_bits_this_step).  ``S_eff`` is a static int or a
-    per-lane (8, 128) i32 tile; ``t`` is a scalar i32 tracer."""
-    mb, in_run_i, run_len, run_kz, run_mz = state
-    in_run = in_run_i != 0       # carried as i32: Mosaic cannot legalize
-    valid = t < S_eff            # i1 vectors in scf.for carries
-
-    nonzero = x != 0
-    run_end_nonzero = in_run & nonzero & valid
-    run_len_new = run_len + jnp.uint32(1)
-    cap = in_run & ~nonzero & valid & (run_len_new >= jnp.uint32(65535))
-    flush = in_run & (not valid if isinstance(valid, bool) else ~valid)
-    emit_run = run_end_nonzero | cap | flush
-    nz = jnp.where(cap, run_len_new, run_len)
-    # Mosaic lacks arith.maxui: express max(run_mz, 1) as a select
-    mzs = jnp.where(run_mz == 0, jnp.uint32(1), run_mz)
-    div2, mod2 = _divmod_capped(nz, mzs)
-    de2 = (mod2 == 0).astype(I32)
-    nb2 = div2 + run_kz + 1 - de2
-    esc2 = div2 >= MAX_PREFIX_16
-    run_bits = jnp.where(esc2, MAX_PREFIX_16 + 16, nb2)
-    run_bits = jnp.where(emit_run, run_bits, 0)
-
-    code_now = valid & (~in_run | run_end_nonzero)
-    zmode = run_end_nonzero.astype(U32)
-
-    m0 = mb >> QBSHIFT
-    k = jnp.minimum(_lg3a(m0), kb)
-    m = jnp.left_shift(jnp.uint32(1), k.astype(U32)) - 1
-    absx = jnp.abs(x).astype(U32)
-    n = (absx * 2 - (x < 0).astype(U32) - zmode).astype(U32)
-    div, mod = _divmod_capped(n, m)
-    de = (mod == 0).astype(I32)
-    nb = div + k + 1 - de
-    esc = (div >= MAX_PREFIX_32) | (nb > MAX_RICE_NUMBITS)
-    len1 = jnp.where(esc, MAX_PREFIX_32, nb)
-    len1 = jnp.where(code_now, len1, 0)
-    len2 = jnp.where(code_now & esc, bit_size, 0)
-
-    pb_v = jnp.uint32(pb)
-    mb_upd = (pb_v * (n + zmode) + mb - ((pb_v * mb) >> PBSHIFT)).astype(U32)
-    mb_upd = jnp.where(n > jnp.uint32(N_MAX_MEAN_CLAMP),
-                       jnp.uint32(N_MEAN_CLAMP_VAL), mb_upd)
-    mb1 = jnp.where(code_now, mb_upd, mb)
-
-    trigger = code_now & ((mb1 << MMULSHIFT) < jnp.uint32(QB)) & (t + 1 < S_eff)
-    kz, mz = _run_kz_mz(mb1, wb)
-    run_kz2 = jnp.where(trigger, kz, run_kz)
-    run_mz2 = jnp.where(trigger, mz, run_mz)
-    mb2 = jnp.where(trigger, jnp.uint32(0), mb1)
-
-    continuing = in_run & ~nonzero & valid & ~cap
-    in_run2 = (continuing | trigger).astype(I32)
-    run_len2 = jnp.where(continuing, run_len_new, jnp.uint32(0))
-
-    return ((mb2, in_run2, run_len2, run_kz2, run_mz2),
-            run_bits + len1 + len2)
-
-
-def _kernel(x_ref, c0_ref, na_ref, num_ref, cb_ref, out_ref, cost1_ref,
-            cost2_ref, cout_ref, state_ref, *, na_static, na_max, chanbits,
-            denshift, mb0, pb, kb, wb, S, n_chunks, dual, has_num):
-    """One (lane-tile, sample-chunk) grid step of the fused scan.
-
-    VMEM state rows (each (8, 128) i32):
-      [0 .. na_max]                   lags (na_max+1)
-      [na_max+1 .. 2*na_max]          coefs (na_max)
-      then rice1: mb, in_run, run_len, run_kz, run_mz, total1
-      then: prev_out
-      then rice2: mb, in_run, run_len, run_kz, run_mz, total2
-    """
-    denhalf = jnp.int32(1 << (denshift - 1))
-    sc = pl.program_id(1)
-    R1 = 2 * na_max + 1               # rice1 base row
-    PV = R1 + 6                       # prev_out row
-    R2 = PV + 1                       # rice2 base row
-
-    na = None if na_static is not None else na_ref[0, :, :]
-    num = num_ref[0, :, :] if has_num else None
-    S_eff = S if num is None else num
-    chanbits = chanbits if chanbits is not None else cb_ref[0, :, :]
-
-    @pl.when(sc == 0)
-    def _():
-        zero = jnp.zeros((8, 128), I32)
-        for k in range(na_max):
-            state_ref[na_max + 1 + k, :, :] = c0_ref[k, 0, :, :]
-        for j in range(na_max + 1):
-            state_ref[j, :, :] = zero
-        for base in (R1, R2):
-            state_ref[base + 0, :, :] = jnp.full((8, 128), mb0, I32)
-            for r in range(1, 6):
-                state_ref[base + r, :, :] = zero
-        state_ref[PV, :, :] = zero
-
-    def load_rice(base):
-        return (state_ref[base + 0, :, :].astype(U32),        # mb
-                state_ref[base + 1, :, :],                     # in_run (i32)
-                state_ref[base + 2, :, :].astype(U32),         # run_len
-                state_ref[base + 3, :, :],                     # run_kz (i32)
-                state_ref[base + 4, :, :].astype(U32))         # run_mz
-
-    def store_rice(base, st, total):
-        state_ref[base + 0, :, :] = st[0].astype(I32)
-        state_ref[base + 1, :, :] = st[1]
-        state_ref[base + 2, :, :] = st[2].astype(I32)
-        state_ref[base + 3, :, :] = st[3]
-        state_ref[base + 4, :, :] = st[4].astype(I32)
-        state_ref[base + 5, :, :] = total
-
-    lags0 = tuple(state_ref[j, :, :] for j in range(na_max + 1))
-    coefs0 = tuple(state_ref[na_max + 1 + k, :, :] for k in range(na_max))
-    rice1_0 = load_rice(R1) + (state_ref[R1 + 5, :, :],)
-    prev0 = state_ref[PV, :, :]
-    rice2_0 = load_rice(R2) + (state_ref[R2 + 5, :, :],)
-
-    def step(i, carry):
-        lags = carry[:na_max + 1]
-        coefs = carry[na_max + 1:2 * na_max + 1]
-        r1 = carry[2 * na_max + 1:2 * na_max + 7]
-        prev_out = carry[2 * na_max + 7]
-        r2 = carry[2 * na_max + 8:2 * na_max + 14]
-        t = sc * S_CHUNK + i
-        x_t = x_ref[i, :, :]
-
-        # ---- adaptive FIR predictor (dp_enc.c :: pc_block) ----
-        if na_static is not None:
-            top = lags[na_static]
-            in_warm = t <= na_static
-        else:
-            top = jnp.zeros((8, 128), I32)
-            for j in range(na_max + 1):
-                top = jnp.where(na == j, lags[j], top)
-            in_warm = t <= na
-
-        sum1 = denhalf
-        for k in range(na_max):
-            term = coefs[k] * (lags[k] - top)
-            if na_static is None:
-                term = jnp.where(k < na, term, 0)
-            elif k >= na_static:
-                term = 0
-            sum1 = sum1 + term
-        pred_adj = jnp.right_shift(sum1, denshift)
-        out_gen = _sext(x_t - top - pred_adj, chanbits)
-        out_warm = _sext(x_t - lags[0], chanbits)
-        out = jnp.where(t == 0, x_t, jnp.where(in_warm, out_warm, out_gen))
-        out_ref[i, :, :] = out
-
-        adapt = jnp.logical_not(in_warm)
-        sg = _sign(out)
-        del0 = out
-        new_coefs = list(coefs)
-        k_hi = na_max if na_static is None else na_static
-        for k in range(k_hi - 1, -1, -1):
-            going = ((sg > 0) & (del0 > 0)) | ((sg < 0) & (del0 < 0))
-            active = adapt & going
-            if na_static is None:
-                active = active & (k < na)
-            dd = top - lags[k]
-            sgn = _sign(dd)
-            upd = jnp.where(sg > 0, -sgn, sgn)
-            new_coefs[k] = _sext(coefs[k] + jnp.where(active, upd, 0), 16)
-            mag = sgn * dd
-            term = jnp.where(sg > 0, jnp.right_shift(mag, denshift),
-                             jnp.right_shift(-mag, denshift))
-            weight = (na_static - k) if na_static is not None else (na - k)
-            del0 = del0 - jnp.where(active, weight * term, 0)
-
-        new_lags = (x_t,) + lags[:-1]
-
-        # ---- Rice cost machine 1 (mode-0 residuals) ----
-        st1, bits1 = _cost_step_lens(
-            out, t, r1[:5], S_eff=S_eff, bit_size=chanbits, pb=pb, kb=kb,
-            wb=wb)
-        tot1 = r1[5] + bits1
-
-        ret = new_lags + tuple(new_coefs) + st1 + (tot1,)
-        if dual:
-            d = jnp.where(t == 0, out, _sext(out - prev_out, chanbits))
-            st2, bits2 = _cost_step_lens(
-                d, t, r2[:5], S_eff=S_eff, bit_size=chanbits, pb=pb,
-                kb=kb, wb=wb)
-            tot2 = r2[5] + bits2
-            ret = ret + (out,) + st2 + (tot2,)
-        else:
-            ret = ret + (out,) + r2[:5] + (r2[5],)
-        return ret
-
-    carry0 = lags0 + coefs0 + rice1_0 + (prev0,) + rice2_0
-    final = jax.lax.fori_loop(0, S_CHUNK, step, carry0)
-
-    for j in range(na_max + 1):
-        state_ref[j, :, :] = final[j]
-    for k in range(na_max):
-        state_ref[na_max + 1 + k, :, :] = final[na_max + 1 + k]
-    store_rice(R1, final[2 * na_max + 1:2 * na_max + 6],
-               final[2 * na_max + 6])
-    state_ref[PV, :, :] = final[2 * na_max + 7]
-    store_rice(R2, final[2 * na_max + 8:2 * na_max + 13],
-               final[2 * na_max + 13])
-
-    @pl.when(sc == n_chunks - 1)
-    def _():
-        # virtual end step (t == S): flush a pending zero-run token in
-        # each machine (rice.rice_cost's flush), then publish outputs
-        one = jnp.ones((8, 128), I32)
-        st1 = load_rice(R1)
-        _, bits1 = _cost_step_lens(one, S, st1, S_eff=S_eff,
-                                   bit_size=chanbits, pb=pb, kb=kb, wb=wb)
-        cost1_ref[0, :, :] = state_ref[R1 + 5, :, :] + bits1
-        if dual:
-            st2 = load_rice(R2)
-            _, bits2 = _cost_step_lens(one, S, st2, S_eff=S_eff,
-                                       bit_size=chanbits, pb=pb, kb=kb,
-                                       wb=wb)
-            cost2_ref[0, :, :] = state_ref[R2 + 5, :, :] + bits2
-        else:
-            cost2_ref[0, :, :] = jnp.zeros((8, 128), I32)
-        for k in range(na_max):
-            cout_ref[k, 0, :, :] = state_ref[na_max + 1 + k, :, :]
-        for k in range(na_max, kALACMaxCoefs):
-            cout_ref[k, 0, :, :] = c0_ref[k, 0, :, :]
+    carry = jax.lax.fori_loop(0, S, body, carry0)
+    totals = predict._general_costs(carry, nk=nk, S=S, S_eff=S_eff,
+                                    chanbits=cb, cost=cost, dual=dual)
+    cost_ref[0, :] = totals[0]
+    cost_ref[1, :] = totals[1] if dual else zero
+    for k in range(kALACMaxCoefs):
+        cout_ref[k, :] = carry[nk + 1 + k] if k < nk else c0_ref[k, :]
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("na_static", "na_max", "chanbits", "denshift", "mb0",
-                     "pb", "kb", "wb", "dual", "has_num", "interpret"))
-def _cost2_pallas_call(x, coefs0, na_arr, num_arr, cb_arr, *, na_static,
-                       na_max, chanbits, denshift, mb0, pb, kb, wb, dual,
-                       has_num, interpret=False):
+    static_argnames=("na_static", "nk", "chanbits", "denshift", "cost",
+                     "dual", "has_num", "interpret"))
+def _cost_call(x, coefs0, na_arr, cb_arr, num_arr, *, na_static, nk,
+               chanbits, denshift, cost, dual, has_num, interpret):
     L, S = x.shape
-    G = L // 128
-    xt = x.astype(I32).T.reshape(S, G, 128)
-    ct = coefs0.astype(I32).T.reshape(kALACMaxCoefs, 1, G, 128)
-    na_t = na_arr.astype(I32).reshape(1, G, 128)
-    num_t = num_arr.astype(I32).reshape(1, G, 128)
-    cb_t = cb_arr.astype(I32).reshape(1, G, 128)
-    n_chunks = S // S_CHUNK
+    xt = pad_lanes(x.astype(I32).T, LANES)
+    ct = pad_lanes(coefs0.astype(I32).T, LANES)
+    Lp = xt.shape[1]
+    # padding lanes: order/chanbits/num of a harmless real lane
+    na_t = pad_lanes(na_arr.astype(I32)[None, :], LANES, nk)
+    cb_t = pad_lanes(cb_arr.astype(I32)[None, :], LANES, 16)
+    num_t = pad_lanes(num_arr.astype(I32)[None, :], LANES, S)
+
+    def lane_spec(rows):
+        return pl.BlockSpec((rows, LANES), lambda i: (0, i))
 
     kern = functools.partial(
-        _kernel, na_static=na_static, na_max=na_max, chanbits=chanbits,
-        denshift=denshift, mb0=mb0, pb=pb, kb=kb, wb=wb, S=S,
-        n_chunks=n_chunks, dual=dual, has_num=has_num)
-    grid = (L // LANE_TILE, n_chunks)
-    lane_rows = LANE_TILE // 128
-    out, c1, c2, cout = pl.pallas_call(
+        _cost_kernel, na_static=na_static, nk=nk, chanbits=chanbits,
+        denshift=denshift, cost=cost, dual=dual, has_num=has_num)
+    res, costs, cout = pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((S_CHUNK, lane_rows, 128), lambda i, s: (s, i, 0)),
-            pl.BlockSpec((kALACMaxCoefs, 1, lane_rows, 128),
-                         lambda i, s: (0, 0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((S_CHUNK, lane_rows, 128), lambda i, s: (s, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((kALACMaxCoefs, 1, lane_rows, 128),
-                         lambda i, s: (0, 0, i, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((S, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((kALACMaxCoefs, 1, G, 128), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2 * na_max + 14, 8, 128), jnp.int32),
-        ],
+        grid=(Lp // LANES,),
+        in_specs=[lane_spec(S), lane_spec(kALACMaxCoefs), lane_spec(1),
+                  lane_spec(1), lane_spec(1)],
+        out_specs=[lane_spec(S), lane_spec(2), lane_spec(kALACMaxCoefs)],
+        out_shape=[jax.ShapeDtypeStruct((S, Lp), jnp.int32),
+                   jax.ShapeDtypeStruct((2, Lp), jnp.int32),
+                   jax.ShapeDtypeStruct((kALACMaxCoefs, Lp), jnp.int32)],
+        compiler_params=compiler_params(),
         interpret=interpret,
-    )(xt, ct, na_t, num_t, cb_t)
-    res = out.reshape(S, L).T
-    return (res, c1.reshape(L), c2.reshape(L),
-            cout.reshape(kALACMaxCoefs, L).T)
+        name="alacjax_cost_scan",
+    )(xt, ct, na_t, cb_t, num_t)
+    return res[:, :L].T, costs[0, :L], costs[1, :L], cout[:, :L].T
 
 
 def pc_block_cost2_pallas(x, coefs0, na, chanbits, denshift: int,
@@ -382,40 +105,18 @@ def pc_block_cost2_pallas(x, coefs0, na, chanbits, denshift: int,
                           na_max: int, num=None, dual: bool = True,
                           interpret: bool = False):
     """(L, S) samples -> (res (L, S), cost1 (L,), cost2 (L,),
-    coefs (L, 16)); bit-identical to ops/predict.pc_block_cost2.
-
-    Lanes are padded to LANE_TILE inside (padding lanes cost nothing
-    real and are sliced off); S must be a multiple of S_CHUNK and
-    denshift static — callers fall back to the XLA scan otherwise.
-    ``chanbits`` may be per-lane (stacked SCE/CPE channels, e.g. 5.1)."""
-    L, S = x.shape
-    if S % S_CHUNK:
-        raise ValueError(f"S={S} needs %{S_CHUNK}==0")
-    pad = (-L) % LANE_TILE
+    coefs (L, 16)); bit-identical to ops/predict.pc_block_cost2 (cost2
+    is zero with dual=False).  ``na`` and ``chanbits`` are static ints
+    or per-lane (L,) arrays; ``na_max`` bounds a per-lane order."""
+    L = x.shape[0]
     na_static = na if isinstance(na, int) else None
     cb_static = chanbits if isinstance(chanbits, int) else None
-    x_p = x if not pad else jnp.concatenate(
-        [x, jnp.zeros((pad, S), x.dtype)], axis=0)
-    c0_p = coefs0 if not pad else jnp.concatenate(
-        [coefs0, jnp.zeros((pad, coefs0.shape[1]), coefs0.dtype)], axis=0)
-
-    def lane_vec(v, pad_val):
-        v = jnp.asarray(v, I32)
-        if pad:
-            v = jnp.concatenate([v, jnp.full((pad,), pad_val, I32)], axis=0)
-        return v
-
-    na_arr = (jnp.zeros((L + pad,), I32) if na_static is not None
-              else lane_vec(na, na_max))
-    cb_arr = (jnp.zeros((L + pad,), I32) if cb_static is not None
-              else lane_vec(chanbits, 17))
-    num_t = (jnp.zeros((L + pad,), I32) if num is None
-             else lane_vec(num, S))
-    res, c1, c2, cout = _cost2_pallas_call(
-        x_p, c0_p, na_arr, num_t, cb_arr,
-        na_static=na_static, na_max=na_max, chanbits=cb_static,
-        denshift=denshift, mb0=mb0, pb=pb, kb=kb, wb=wb, dual=dual,
-        has_num=num is not None, interpret=interpret)
-    if pad:
-        res, c1, c2, cout = res[:L], c1[:L], c2[:L], cout[:L]
-    return res, c1, c2, cout
+    zeros = jnp.zeros((L,), I32)
+    return _cost_call(
+        x, coefs0, zeros if na_static is not None else na,
+        zeros if cb_static is not None else chanbits,
+        zeros if num is None else num,
+        na_static=na_static, nk=na_static if na_static is not None
+        else na_max, chanbits=cb_static, denshift=denshift,
+        cost=(mb0, int(pb), kb, wb), dual=dual, has_num=num is not None,
+        interpret=interpret)

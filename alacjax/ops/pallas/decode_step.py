@@ -1,21 +1,16 @@
-"""Mosaic kernel for ONE fused-decode scan step (G substeps + refill shift).
+"""GPU kernel for ONE fused-decode scan step (G substeps + refill shift).
 
-The decode scan's XLA while body compiles to ~19 kLoop fusions per
-iteration and is launch-bound (~1.6 us per fusion launch; see
-docs/PERF_NOTES.md).  The r4 whole-loop Mosaic kernel
-(decode_pallas.py) deleted the launches but had to re-implement the
-per-lane word FETCH inside the kernel (prefetch-window machinery) and
-lost 2.4x.  This kernel takes the hybrid middle: the lax.scan and its
-per-lane row GATHER stay in XLA (gathers are XLA's strength and
-Mosaic's weakness), and the entire remaining step body — G Rice+FIR
-substeps plus the cache shift — runs as ONE kernel launch per
-iteration (~3 launches/iter total).
+As an XLA while loop the decode scan's step body splits into a couple of
+dozen fusions, each a launch per scan step.  This kernel runs the whole
+body — G Rice+FIR substeps and the cache shift — as one launch, while
+the lax.scan and its per-lane row gather stay in XLA.  One program owns
+a block of lanes, one lane per thread, and the state stacks are
+lane-minor, so each row's loads and stores are coalesced.
 
 Parity is by construction: the kernel calls the SAME
 fused_decode._substep_core / _shift_cache functions the XLA step uses —
 there is no second implementation of the decode arithmetic.  All refs
-are i32 (u32 state rows are value-converted at the boundary, two's
-complement, like emit_pallas).
+are i32 (u32 state rows are value-converted at the boundary).
 
 Reference: codec/dp_dec.c :: unpc_block + codec/ag_dec.c :: dyn_decomp
 per sample; the launch structure has no scalar counterpart.
@@ -28,112 +23,84 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..jaxutils import I32, U32
+from . import LANES, compiler_params
 
 _N_ST = 6  # bitpos, mb, zmode, run_rem, c, err
 
 
 def _step_kernel(st_ref, base_ref, blk_ref, ext_ref, pred_ref, par_ref,
                  st2_ref, base2_ref, blk2_ref, pred2_ref, y_ref, *,
-                 nk, G, K, S, chanbits, cb_max, kb, wb, rel0,
-                 cache_words, r_rows, has_num, P):
+                 nk, G, S, chanbits, cb_max, kb, wb, rel0, cache_words,
+                 r_rows, has_num, P):
     from .. import fused_decode as fd
-    from .cost_pallas import _clz32
 
-    st = (st_ref[0], st_ref[1].astype(U32), st_ref[2].astype(U32),
-          st_ref[3].astype(U32), st_ref[4], st_ref[5] != 0)
-    blk_base = base_ref[0]
-    blk = tuple(blk_ref[i].astype(U32) for i in range(cache_words))
-    exts = tuple(ext_ref[i].astype(U32) for i in range(8 * r_rows * K))
-    pred = tuple(pred_ref[i] for i in range(P))
-    na_eff, den, denhalf = par_ref[0], par_ref[1], par_ref[2]
-    mode_nz = par_ref[3] != 0
-    is0 = par_ref[4] != 0
-    is31 = par_ref[5] != 0
-    pb_v = par_ref[6].astype(U32)
-    num = par_ref[7] if has_num else None
+    st = (st_ref[0, :], st_ref[1, :].astype(U32), st_ref[2, :].astype(U32),
+          st_ref[3, :].astype(U32), st_ref[4, :], st_ref[5, :] != 0)
+    blk_base = base_ref[0, :]
+    blk = tuple(blk_ref[i, :].astype(U32) for i in range(cache_words))
+    ext = tuple(ext_ref[i, :].astype(U32) for i in range(8 * r_rows))
+    pred = tuple(pred_ref[i, :] for i in range(P))
+    num = par_ref[7, :] if has_num else None
 
-    # K scan steps per launch: XLA prefetches K*r_rows CONSECUTIVE rows
-    # (the next needed row index only ever advances by the cache shift,
-    # <= r_rows per step, so the K-step window is exactly those rows —
-    # no speculative fetch machinery).  Step k's refill selects its
-    # 8*r_rows ext words by the cumulative rows already consumed.
-    base_start = blk_base
-    for k in range(K):
-        for g in range(G):
-            st, pred, out = fd._substep_core(
-                st, pred, blk, blk_base, g, nk=nk, S=S,
-                chanbits=chanbits, cb_max=cb_max, pb_v=pb_v, kb=kb,
-                wb=wb, rel0=rel0, cache_words=cache_words, num=num,
-                na_eff=na_eff, den=den, denhalf=denhalf,
-                mode_nz=mode_nz, is0=is0, is31=is31, clz=_clz32)
-            y_ref[k * G + g] = out
-        cum = ((blk_base - base_start) >> 3).astype(I32)
-        win = []
-        for i in range(8 * r_rows):
-            w = exts[i]
-            for c in range(1, k * r_rows + 1):
-                w = jnp.where(cum == c, exts[i + 8 * c], w)
-            win.append(w)
-        st, blk_base, blk = fd._shift_cache(
-            st, blk + tuple(win), blk_base, rel0=rel0,
-            cache_words=cache_words, r_rows=r_rows)
+    par = dict(pb_v=par_ref[6, :].astype(U32), na_eff=par_ref[0, :],
+               den=par_ref[1, :], denhalf=par_ref[2, :],
+               mode_nz=par_ref[3, :] != 0, is0=par_ref[4, :] != 0,
+               is31=par_ref[5, :] != 0)
 
-    st2_ref[0] = st[0]
-    st2_ref[1] = st[1].astype(I32)
-    st2_ref[2] = st[2].astype(I32)
-    st2_ref[3] = st[3].astype(I32)
-    st2_ref[4] = st[4]
-    st2_ref[5] = st[5].astype(I32)
-    base2_ref[0] = blk_base
+    def substep(g, carry):
+        # one loop body for every substep: the window reach is sized for
+        # the last one (G-1), so the kernel compiles one substep, not G
+        st, pred = carry
+        st, pred, out = fd._substep_core(
+            st, pred, blk, blk_base, G - 1, nk=nk, S=S, chanbits=chanbits,
+            cb_max=cb_max, kb=kb, wb=wb, rel0=rel0, cache_words=cache_words,
+            num=num, **par)
+        y_ref[g, :] = out
+        return st, pred
+
+    st, pred = jax.lax.fori_loop(0, G, substep, (st, pred))
+    st, blk_base, blk = fd._shift_cache(
+        st, blk + ext, blk_base, rel0=rel0, cache_words=cache_words,
+        r_rows=r_rows)
+
+    for i, v in enumerate(st):
+        st2_ref[i, :] = v.astype(I32)
+    base2_ref[0, :] = blk_base
     for i in range(cache_words):
-        blk2_ref[i] = blk[i].astype(I32)
+        blk2_ref[i, :] = blk[i].astype(I32)
     for i in range(P):
-        pred2_ref[i] = pred[i]
+        pred2_ref[i, :] = pred[i]
 
 
 def decode_step_pallas(st6, base1, blkS, extS, predS, parS, *, nk, G, S,
                        chanbits, cb_max, kb, wb, rel0, cache_words,
-                       r_rows, has_num, K: int = 1,
-                       interpret: bool | None = None):
-    """K scan steps: (6,B)/(1,B)/(cache_words,B)/(8*r_rows*K,B)/(P,B)
-    i32 stacks -> updated stacks + (K*G, B) decoded samples."""
-    _, B = st6.shape
-    R = B // 128
+                       r_rows, has_num, interpret: bool = False):
+    """One scan step on (rows, B) i32 stacks: state (6, B), cache base
+    (1, B), cache (cache_words, B), fetched rows (8*r_rows, B),
+    predictor state (P, B), lane parameters (8, B) -> updated stacks +
+    (G, B) decoded samples.  B must be a multiple of ``LANES``."""
+    B = st6.shape[1]
     P = predS.shape[0]
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    def resh(a):
-        return a.reshape(a.shape[0], R, 128)
 
     def spec(n):
-        return pl.BlockSpec((n, R, 128), lambda: (0, 0, 0),
-                            memory_space=pltpu.VMEM)
+        return pl.BlockSpec((n, LANES), lambda i: (0, i))
 
     kern = functools.partial(
-        _step_kernel, nk=nk, G=G, K=K, S=S, chanbits=chanbits,
-        cb_max=cb_max, kb=kb, wb=wb, rel0=rel0, cache_words=cache_words,
-        r_rows=r_rows, has_num=has_num, P=P)
-    n_ext = 8 * r_rows * K
-    st2, base2, blk2, pred2, y = pl.pallas_call(
+        _step_kernel, nk=nk, G=G, S=S, chanbits=chanbits, cb_max=cb_max,
+        kb=kb, wb=wb, rel0=rel0, cache_words=cache_words, r_rows=r_rows,
+        has_num=has_num, P=P)
+    return pl.pallas_call(
         kern,
-        in_specs=[spec(_N_ST), spec(1), spec(cache_words), spec(n_ext),
+        grid=(B // LANES,),
+        in_specs=[spec(_N_ST), spec(1), spec(cache_words), spec(8 * r_rows),
                   spec(P), spec(parS.shape[0])],
         out_specs=[spec(_N_ST), spec(1), spec(cache_words), spec(P),
-                   spec(K * G)],
-        out_shape=[
-            jax.ShapeDtypeStruct((_N_ST, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((cache_words, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((P, R, 128), jnp.int32),
-            jax.ShapeDtypeStruct((K * G, R, 128), jnp.int32),
-        ],
+                   spec(G)],
+        out_shape=[jax.ShapeDtypeStruct((n, B), jnp.int32)
+                   for n in (_N_ST, 1, cache_words, P, G)],
+        compiler_params=compiler_params(),
         interpret=interpret,
-    )(resh(st6), resh(base1), resh(blkS), resh(extS), resh(predS),
-      resh(parS))
-    return (st2.reshape(_N_ST, B), base2.reshape(1, B),
-            blk2.reshape(cache_words, B), pred2.reshape(P, B),
-            y.reshape(K * G, B))
+        name="alacjax_decode_step",
+    )(st6, base1, blkS, extS, predS, parS)

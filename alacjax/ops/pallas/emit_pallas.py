@@ -1,17 +1,18 @@
-"""Pallas kernel for the adaptive-Rice EMISSION scan (rice_encode_words).
+"""GPU kernel for the adaptive-Rice EMISSION scan (rice_encode_words).
 
-Same motivation as cost_pallas.py: the emission scan's XLA while body
-fragments into ~24 kLoop fusions per iteration, and per-fusion fixed
-overhead dominates.  This kernel runs the whole (token machine +
-word-accumulator append + slot placement) loop as one Mosaic kernel.
+Same reasoning as cost_pallas.py: as an XLA while loop the emission step
+(token machine + word-accumulator appends + slot placement) splits into
+a couple of dozen fusions, each a launch per sample step.  Here one
+program owns a block of lanes and runs all S+1 steps (the last is the
+virtual end step) with the emission state in registers, writing each
+step's word slots time-major, so the stores are coalesced across lanes.
 
-Semantics are bit-identical to ops/rice.rice_encode_words with
-``emit_flush=False`` (the production codec's only mode: complete words
-in the chunk streams, the final partial word returned as a per-lane
-tail for the merger) — the defining scalar reference is
-alacjax/oracle/ag.py (ag_enc.c).  ``bit_size`` may be per-lane (stacked
-SCE/CPE channels, e.g. 5.1), with ``bit_size_cap`` sizing the emission
-slots statically.
+The body is ``rice._emit_step``, the same function the XLA scan runs, in
+its production mode ``emit_flush=False`` (complete words in the chunk
+streams, the final partial word returned as a per-lane tail for the
+merger); the defining scalar reference is alacjax/oracle/ag.py
+(ag_enc.c).  ``bit_size`` may be per-lane (stacked SCE/CPE channels, as
+in 5.1), with ``bit_size_cap`` sizing the emission slots statically.
 """
 
 from __future__ import annotations
@@ -21,280 +22,83 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ...types import (
-    BITOFF, MAX_PREFIX_16, MAX_PREFIX_32, MAX_RICE_NUMBITS, MDENSHIFT,
-    MMULSHIFT, MOFF, N_MAX_MEAN_CLAMP, N_MEAN_CLAMP_VAL, PBSHIFT, QB,
-    QBSHIFT,
-)
+from .. import rice
 from ..jaxutils import I32, U32
-from .cost_pallas import LANE_TILE, S_CHUNK, _clz32, _divmod_capped, _lg3a
-
-_INF = -1  # 0xFFFFFFFF as i32 (outputs are i32 refs, viewed u32 outside)
-
-
-def _run_kz_mz(mb, wb: int):
-    kz = _clz32(mb) - BITOFF + ((mb + jnp.uint32(MOFF)) >> MDENSHIFT).astype(I32)
-    mz = (jnp.left_shift(jnp.uint32(1), kz.astype(U32)) - 1) & jnp.uint32(wb)
-    return kz, mz
-
-
-def _dyn_code_32(bit_size, m, k, n):
-    """ag_enc.c :: dyn_code_32bit (ops/rice._dyn_code_32, parallel div)."""
-    div, mod = _divmod_capped(n, m)
-    de = (mod == 0).astype(I32)
-    nb = div + k + 1 - de
-    esc = (div >= MAX_PREFIX_32) | (nb > MAX_RICE_NUMBITS)
-    prefix = jnp.left_shift(jnp.uint32(1), div.astype(U32)) - 1
-    val = (jnp.left_shift(prefix, (nb - div).astype(U32))
-           + mod + 1 - de.astype(U32))
-    val1 = jnp.where(esc, jnp.uint32((1 << MAX_PREFIX_32) - 1), val)
-    len1 = jnp.where(esc, MAX_PREFIX_32, nb)
-    return esc, val1, len1
-
-
-def _dyn_code_16(m, k, n):
-    """ag_enc.c :: dyn_code (zero-run lengths; ops/rice._dyn_code_16)."""
-    m = jnp.where(m == 0, jnp.uint32(1), m)   # Mosaic: no maxui
-    div, mod = _divmod_capped(n, m)
-    esc = div >= MAX_PREFIX_16
-    de = (mod == 0).astype(I32)
-    nb = div + k + 1 - de
-    val = (jnp.left_shift(jnp.left_shift(jnp.uint32(1), div.astype(U32)) - 1,
-                          (nb - div).astype(U32)) + mod + 1 - de.astype(U32))
-    val_esc = jnp.uint32(((1 << MAX_PREFIX_16) - 1) << 16) | n
-    return (jnp.where(esc, val_esc, val),
-            jnp.where(esc, MAX_PREFIX_16 + 16, nb))
-
-
-def _append_bits(acc, fill, wcount, v, L):
-    """ops/rice._append_bits, i32 fill arithmetic (branchless)."""
-    Lc = jnp.where(L >= 32, jnp.int32(31), L).astype(U32)
-    vmask = jnp.where(L >= 32, jnp.uint32(0xFFFFFFFF),
-                      jnp.left_shift(jnp.uint32(1), Lc) - 1)
-    v = v.astype(U32) & vmask
-    total = fill + L
-    ge = total >= 32
-    over = total - 32                                   # i32, may be <0
-    sh_out = jnp.where(ge, jnp.where(over > 31, 31, over), 0).astype(U32)
-    out_word = acc | jnp.right_shift(v, sh_out)
-    rem = sh_out                                        # == clip(total-32,0,31)
-    acc_ge = jnp.where(rem == 0, jnp.uint32(0),
-                       jnp.left_shift(v, (jnp.uint32(32) - rem)
-                                      & jnp.uint32(31)))
-    sh_in = jnp.where(total >= 32, 32, 32 - total)      # i32 in [0, 32]
-    sh_in = jnp.where(sh_in > 31, 31, sh_in).astype(U32)
-    acc_lt = acc | jnp.where(total >= 32, jnp.uint32(0),
-                             jnp.left_shift(v, sh_in))
-    acc2 = jnp.where(ge, acc_ge, acc_lt)
-    fill2 = jnp.where(ge, total - 32, total)
-    wcount2 = wcount + ge.astype(I32)
-    return acc2, fill2, wcount2, out_word, ge
+from . import LANES, compiler_params, pad_lanes
 
 
 def _emit_kernel(x_ref, start_ref, bs_ref, num_ref, w_ref, k_ref, end_ref,
-                 tv_ref, tk_ref, state_ref, *, bit_size_static, cap, pb, kb,
-                 wb, mb0, S, n_chunks, n_slots, has_num):
-    """Grid (lane_tiles, n_chunks + 1); the extra step runs only the
-    virtual flush row (t == S).
-
-    VMEM state rows: mb, in_run(i32), run_len, run_kz, run_mz, acc,
-    fill(i32), wcount(i32).
-    """
-    sc = pl.program_id(1)
-    start = start_ref[0, :, :]
-    base_word = jnp.right_shift(start, 5)
+                 tail_ref, *, bit_size_static, mb0, pb, kb, wb, n_slots,
+                 has_num):
+    """One lane block: x (S, lanes) -> words/keys (S+1, n_slots, lanes),
+    end bits (1, lanes), tail value/key (2, lanes)."""
+    S = x_ref.shape[0]
+    start = start_ref[0, :]
+    base_word = start >> 5
     bit_size = (bit_size_static if bit_size_static is not None
-                else bs_ref[0, :, :])
-    num = num_ref[0, :, :] if has_num else None
-    S_eff = S if num is None else num
+                else bs_ref[0, :])
+    step = functools.partial(
+        rice._emit_step, S=S, S_eff=num_ref[0, :] if has_num else S,
+        bit_size=bit_size, pb=pb, kb=kb, wb=wb, base_word=base_word,
+        n_slots=n_slots, emit_flush=False)
 
-    @pl.when(sc == 0)
-    def _():
-        zero = jnp.zeros((8, 128), I32)
-        state_ref[0, :, :] = jnp.full((8, 128), mb0, I32)
-        for r in (1, 2, 3, 4):
-            state_ref[r, :, :] = zero
-        state_ref[5, :, :] = zero                       # acc
-        state_ref[6, :, :] = start & 31                 # fill: bit phase
-        state_ref[7, :, :] = zero                       # wcount
-
-    def token_step(x, t, st):
-        """One _encode_step_tokens (ops/rice.py) with values: returns
-        (new_state, vals 3-tuple u32, lens 3-tuple i32)."""
-        mb, in_run_i, run_len, run_kz, run_mz = st
-        in_run = in_run_i != 0
-        valid = t < S_eff
-        nonzero = x != 0
-        run_end_nonzero = in_run & nonzero & valid
-        run_len_new = run_len + jnp.uint32(1)
-        cap_r = in_run & ~nonzero & valid & (run_len_new >= jnp.uint32(65535))
-        flush = in_run & (not valid if isinstance(valid, bool) else ~valid)
-        emit_run = run_end_nonzero | cap_r | flush
-        nz = jnp.where(cap_r, run_len_new, run_len)
-        run_val, run_bits = _dyn_code_16(run_mz, run_kz, nz)
-        run_bits = jnp.where(emit_run, run_bits, 0)
-
-        code_now = valid & (~in_run | run_end_nonzero)
-        zmode = run_end_nonzero.astype(U32)
-        m0 = mb >> QBSHIFT
-        k = jnp.minimum(_lg3a(m0), kb)
-        m = jnp.left_shift(jnp.uint32(1), k.astype(U32)) - 1
-        absx = jnp.abs(x).astype(U32)
-        n = (absx * 2 - (x < 0).astype(U32) - zmode).astype(U32)
-        esc, val1, len1 = _dyn_code_32(bit_size, m, k, n)
-        # merged escape token: prefix (9 x 1-bits) + raw chanbits payload
-        # in ONE append — chanbits <= 21 at every depth (bit_depth -
-        # 8*bytes_shifted + 1), so 9 + 21 <= 30 bits always fits a
-        # single word append.  Saves the third token machine per sample
-        # (same bitstream: the two fields are emitted back-to-back
-        # either way; the XLA fallback keeps its 3-token form).
-        bs_u = jnp.asarray(bit_size, U32)
-        val1 = jnp.where(
-            esc,
-            jnp.left_shift(jnp.uint32((1 << MAX_PREFIX_32) - 1), bs_u) | n,
-            val1)
-        len1 = jnp.where(esc, MAX_PREFIX_32 + bit_size, len1)
-        len1 = jnp.where(code_now, len1, 0)
-
-        pb_v = jnp.uint32(pb)
-        mb_upd = (pb_v * (n + zmode) + mb
-                  - ((pb_v * mb) >> PBSHIFT)).astype(U32)
-        mb_upd = jnp.where(n > jnp.uint32(N_MAX_MEAN_CLAMP),
-                           jnp.uint32(N_MEAN_CLAMP_VAL), mb_upd)
-        mb1 = jnp.where(code_now, mb_upd, mb)
-        trigger = (code_now & ((mb1 << MMULSHIFT) < jnp.uint32(QB))
-                   & (t + 1 < S_eff))
-        kz, mz = _run_kz_mz(mb1, wb)
-        run_kz2 = jnp.where(trigger, kz, run_kz)
-        run_mz2 = jnp.where(trigger, mz, run_mz)
-        mb2 = jnp.where(trigger, jnp.uint32(0), mb1)
-        continuing = in_run & ~nonzero & valid & ~cap_r
-        in_run2 = (continuing | trigger).astype(I32)
-        run_len2 = jnp.where(continuing, run_len_new, jnp.uint32(0))
-        return ((mb2, in_run2, run_len2, run_kz2, run_mz2),
-                (run_val, val1),
-                (run_bits, len1))
-
-    def emit_row(i, x, t, carry):
-        st, acc, fill, wcount = carry[:5], carry[5], carry[6], carry[7]
-        st, vals, lens = token_step(x, t, st)
-        slot_w = [jnp.zeros((8, 128), U32) for _ in range(n_slots)]
-        slot_k = [jnp.full((8, 128), _INF, I32) for _ in range(n_slots)]
-        n_emitted = jnp.zeros((8, 128), I32)
-        for v, L in zip(vals, lens):
-            key = base_word + wcount
-            acc, fill, wcount, w, emit = _append_bits(acc, fill, wcount, v, L)
-            for si in range(n_slots):
-                hit = emit & (n_emitted == si)
-                slot_w[si] = jnp.where(hit, w, slot_w[si])
-                slot_k[si] = jnp.where(hit, key, slot_k[si])
-            n_emitted = n_emitted + emit.astype(I32)
+    def put(t, state, x):
+        state, (ws, ks) = step(state, x, t)
         for si in range(n_slots):
-            w_ref[i, si, :, :] = slot_w[si].astype(I32)
-            k_ref[i, si, :, :] = slot_k[si]
-        return st + (acc, fill, wcount)
+            w_ref[t, si, :] = ws[si]
+            k_ref[t, si, :] = ks[si]
+        return state
 
-    @pl.when(sc < n_chunks)
-    def _():
-        def step(i, carry):
-            return emit_row(i, x_ref[i, :, :], sc * S_CHUNK + i, carry)
-        carry0 = (state_ref[0, :, :].astype(U32), state_ref[1, :, :],
-                  state_ref[2, :, :].astype(U32), state_ref[3, :, :],
-                  state_ref[4, :, :].astype(U32), state_ref[5, :, :].astype(U32),
-                  state_ref[6, :, :], state_ref[7, :, :])
-        final = jax.lax.fori_loop(0, S_CHUNK, step, carry0)
-        state_ref[0, :, :] = final[0].astype(I32)
-        state_ref[1, :, :] = final[1]
-        state_ref[2, :, :] = final[2].astype(I32)
-        state_ref[3, :, :] = final[3]
-        state_ref[4, :, :] = final[4].astype(I32)
-        state_ref[5, :, :] = final[5].astype(I32)
-        state_ref[6, :, :] = final[6]
-        state_ref[7, :, :] = final[7]
-
-    @pl.when(sc == n_chunks)
-    def _():
-        # virtual step t == S: flush a pending run token (emit_flush=False:
-        # the partial accumulator word is NOT emitted — it is the tail).
-        # Rows past 0 of this block are empty: one vectorized splat each.
-        w_ref[:, :, :, :] = jnp.zeros((S_CHUNK, n_slots, 8, 128), I32)
-        k_ref[:, :, :, :] = jnp.full((S_CHUNK, n_slots, 8, 128), _INF, I32)
-        carry0 = (state_ref[0, :, :].astype(U32), state_ref[1, :, :],
-                  state_ref[2, :, :].astype(U32), state_ref[3, :, :],
-                  state_ref[4, :, :].astype(U32), state_ref[5, :, :].astype(U32),
-                  state_ref[6, :, :], state_ref[7, :, :])
-        final = emit_row(0, jnp.ones((8, 128), I32), S, carry0)
-        acc, fill, wcount = final[5], final[6], final[7]
-        end_ref[0, :, :] = (base_word + wcount) * 32 + fill
-        tv_ref[0, :, :] = jnp.where(fill > 0, acc, jnp.uint32(0)).astype(I32)
-        tk_ref[0, :, :] = base_word + wcount
+    state = jax.lax.fori_loop(
+        0, S, lambda t, st: put(t, st, x_ref[t, :]),
+        rice._emit_state0(start, mb0))
+    state = put(S, state, jnp.ones_like(start))     # virtual end step
+    end_bits, tail_val, tail_key = rice._emit_finish(state, base_word)
+    end_ref[0, :] = end_bits
+    tail_ref[0, :] = tail_val
+    tail_ref[1, :] = tail_key
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("bit_size_static", "cap", "mb0", "pb", "kb", "wb",
                      "has_num", "interpret"))
-def _emit_pallas_call(x, start_bits, bs_arr, num_arr, *, bit_size_static,
-                      cap, mb0, pb, kb, wb, has_num, interpret=False):
+def _emit_call(x, start_bits, bs_arr, num_arr, *, bit_size_static, cap,
+               mb0, pb, kb, wb, has_num, interpret):
     L, S = x.shape
-    G = L // 128
-    xt = x.astype(I32).T.reshape(S, G, 128)
-    st_t = start_bits.astype(I32).reshape(1, G, 128)
-    bs_t = bs_arr.astype(I32).reshape(1, G, 128)
-    num_t = num_arr.astype(I32).reshape(1, G, 128)
-    n_chunks = S // S_CHUNK
-    n_slots = (31 + 25 + MAX_PREFIX_32 + cap) // 32
-    lane_rows = LANE_TILE // 128
+    xt = pad_lanes(x.astype(I32).T, LANES)
+    Lp = xt.shape[1]
+    st_t = pad_lanes(start_bits.astype(I32)[None, :], LANES)
+    bs_t = pad_lanes(bs_arr.astype(I32)[None, :], LANES, cap)
+    num_t = pad_lanes(num_arr.astype(I32)[None, :], LANES, S)
+    n_slots = rice._emit_slots(cap)
+
+    def lane_spec(*rows):
+        return pl.BlockSpec(rows + (LANES,),
+                            lambda i: (0,) * len(rows) + (i,))
 
     kern = functools.partial(
-        _emit_kernel, bit_size_static=bit_size_static, cap=cap, pb=pb,
-        kb=kb, wb=wb, mb0=mb0, S=S, n_chunks=n_chunks, n_slots=n_slots,
-        has_num=has_num)
-    grid = (L // LANE_TILE, n_chunks + 1)
-    Sp = (n_chunks + 1) * S_CHUNK
-    w, k, end, tv, tk = pl.pallas_call(
+        _emit_kernel, bit_size_static=bit_size_static, mb0=mb0, pb=pb,
+        kb=kb, wb=wb, n_slots=n_slots, has_num=has_num)
+    w, k, end, tail = pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=[
-            # the virtual grid step re-reads the last real chunk (ignored)
-            pl.BlockSpec((S_CHUNK, lane_rows, 128),
-                         lambda i, s: (jnp.where(s >= n_chunks,
-                                                 n_chunks - 1, s), i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((S_CHUNK, n_slots, lane_rows, 128),
-                         lambda i, s: (s, 0, i, 0)),
-            pl.BlockSpec((S_CHUNK, n_slots, lane_rows, 128),
-                         lambda i, s: (s, 0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-            pl.BlockSpec((1, lane_rows, 128), lambda i, s: (0, i, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Sp, n_slots, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((Sp, n_slots, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, G, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1, G, 128), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((8, 8, 128), jnp.int32)],
-        # the two (S_CHUNK, n_slots, 8, 128) output blocks double-buffer
-        # past the default 16 MB scoped-vmem limit; v5e has 128 MB
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
+        grid=(Lp // LANES,),
+        in_specs=[lane_spec(S), lane_spec(1), lane_spec(1), lane_spec(1)],
+        out_specs=[lane_spec(S + 1, n_slots), lane_spec(S + 1, n_slots),
+                   lane_spec(1), lane_spec(2)],
+        out_shape=[jax.ShapeDtypeStruct((S + 1, n_slots, Lp), U32),
+                   jax.ShapeDtypeStruct((S + 1, n_slots, Lp), U32),
+                   jax.ShapeDtypeStruct((1, Lp), I32),
+                   jax.ShapeDtypeStruct((2, Lp), U32)],
+        compiler_params=compiler_params(),
         interpret=interpret,
+        name="alacjax_rice_emit",
     )(xt, st_t, bs_t, num_t)
-    # (Sp, n_slots, G, 128) -> (L, (S+1)*n_slots) in stream order
-    w = w[:S + 1].reshape(S + 1, n_slots, L)
-    k = k[:S + 1].reshape(S + 1, n_slots, L)
-    words = jnp.transpose(w, (2, 0, 1)).reshape(L, -1).astype(U32)
-    keys = jnp.transpose(k, (2, 0, 1)).reshape(L, -1).astype(U32)
-    return (words, keys, end.reshape(L), tv.reshape(L), tk.reshape(L))
+    # (S+1, n_slots, L) -> (L, (S+1)*n_slots) in stream order
+    words = jnp.transpose(w[:, :, :L], (2, 0, 1)).reshape(L, -1)
+    keys = jnp.transpose(k[:, :, :L], (2, 0, 1)).reshape(L, -1)
+    return words, keys, end[0, :L], tail[0, :L], tail[1, :L]
 
 
 def rice_encode_words_pallas(res, bit_size, mb0: int, pb, kb: int, wb: int,
@@ -304,37 +108,13 @@ def rice_encode_words_pallas(res, bit_size, mb0: int, pb, kb: int, wb: int,
     (chunk_words (L, n_slots*(S+1)) u32, chunk_keys u32 with 0xFFFFFFFF
     empty slots, end_bits (L,) i32, tail_val (L,) u32, tail_key (L,) u32).
     """
-    L, S = res.shape
-    if S % S_CHUNK:
-        raise ValueError(f"S={S} needs %{S_CHUNK}==0")
-    pad = (-L) % LANE_TILE
+    L = res.shape[0]
     cap = bit_size if isinstance(bit_size, int) else int(bit_size_cap)
     bss = bit_size if isinstance(bit_size, int) else None
-    x_p = res if not pad else jnp.concatenate(
-        [res.astype(I32), jnp.zeros((pad, S), I32)], axis=0)
-    sb = jnp.asarray(start_bits, I32)
-    if pad:
-        sb = jnp.concatenate([sb, jnp.zeros((pad,), I32)], axis=0)
-    if bss is None:
-        bs_arr = jnp.asarray(bit_size, I32)
-        if pad:
-            bs_arr = jnp.concatenate([bs_arr, jnp.full((pad,), cap, I32)],
-                                     axis=0)
-    else:
-        bs_arr = jnp.zeros((L + pad,), I32)
-    if num is None:
-        num_t = jnp.zeros((L + pad,), I32)
-    else:
-        num_t = jnp.asarray(num, I32)
-        if pad:
-            num_t = jnp.concatenate([num_t, jnp.full((pad,), S, I32)],
-                                    axis=0)
-    words, keys, end, tv, tk = _emit_pallas_call(
-        x_p, sb, bs_arr, num_t, bit_size_static=bss, cap=cap, mb0=mb0,
-        pb=int(pb), kb=kb, wb=wb, has_num=num is not None,
-        interpret=interpret)
-    if pad:
-        words, keys = words[:L], keys[:L]
-        end, tv, tk = end[:L], tv[:L], tk[:L]
-    return (words, keys.astype(U32), end,
-            tv.astype(U32), tk.astype(U32))
+    zeros = jnp.zeros((L,), I32)
+    return _emit_call(
+        res, jnp.broadcast_to(jnp.asarray(start_bits, I32), (L,)),
+        zeros if bss is not None else bit_size,
+        zeros if num is None else num,
+        bit_size_static=bss, cap=cap, mb0=mb0, pb=int(pb), kb=kb, wb=wb,
+        has_num=num is not None, interpret=interpret)

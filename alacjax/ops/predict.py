@@ -2,19 +2,20 @@
 reference: codec/dp_enc.c / dp_dec.c).
 
 The per-frame recurrence is irreducibly sequential in the sample axis, so
-it runs as a `lax.scan` over S steps, each step a full-width VPU op across
-the B frame-lanes (SURVEY.md §5 sequence-parallel row).  The reference's
-data-dependent early-exit coefficient walk becomes a branchless masked
-update: each of the 16 tap iterations computes its activity predicate
-(k < numactive, error still on the original side) and applies a masked
-+/-1 coefficient step — bit-identical to the sequential walk because the
-mask reproduces the exact break condition.
+it runs as a `lax.scan` over S steps, each step a full-width
+elementwise op across the B frame-lanes (SURVEY.md §5
+sequence-parallel row).  The reference's data-dependent early-exit
+coefficient walk becomes a branchless masked update: each of the 16 tap
+iterations computes its activity predicate (k < numactive, error still
+on the original side) and applies a masked +/-1 coefficient step —
+bit-identical to the sequential walk because the mask reproduces the
+exact break condition.
 
 Performance shape: the scan carry is a *tuple of (B,) vectors* (17 lagged
 samples + 16 coefficient columns), so the per-step "window shift" is pure
 SSA renaming — zero data movement — and every op in the body is a plain
-elementwise op on (B,) lanes.  A (B, 17) window with per-step concatenate
-costs ~10x in loop overhead.
+elementwise op on (B,) lanes.  A (B, 17) window with a per-step
+concatenate would move the whole window on every step.
 
 ``numactive`` may be a static python int (encoder: candidate orders) or a
 per-lane (B,) array (decoder: orders arrive in the stream).  Per-lane
@@ -25,18 +26,21 @@ routed to the oracle.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
 from ..types import kALACMaxCoefs
+from . import pallas
 from .jaxutils import I32, sign_extend, sign_of_int
 
-# Scan unroll factor: 4 is the measured sweet spot on TPU; the CPU test
-# tier sets ALACJAX_SCAN_UNROLL=1 because XLA CPU compile time scales
-# with the unrolled body size (results are bit-identical either way).
-# Read lazily at trace time so late os.environ updates (e.g. the
-# multichip dryrun's setdefault) take effect even if this module was
-# imported earlier in the process.
+# Scan unroll factor.  The default of 4 dates from before the GPU port
+# and has not been re-measured on the H100; the CPU test tier sets
+# ALACJAX_SCAN_UNROLL=1 because XLA:CPU compile time scales with the
+# unrolled body size (results are bit-identical either way).  Read
+# lazily at trace time so an os.environ update after import still takes
+# effect.
 import os as _os
 
 
@@ -44,22 +48,150 @@ def _unroll() -> int:
     return int(_os.environ.get("ALACJAX_SCAN_UNROLL", "4"))
 
 
+def _fir_den(denshift):
+    """(den, denhalf) with den = max(denshift, 1): denshift == 0 is only
+    reachable from invalid streams (flagged upstream).  A static int
+    stays a Python int, so kernels see constants."""
+    if isinstance(denshift, int):
+        den = max(denshift, 1)
+        return den, 1 << (den - 1)
+    den = jnp.maximum(jnp.asarray(denshift, I32), 1)
+    return den, jnp.left_shift(jnp.int32(1), den - 1).astype(I32)
+
+
+def _general_carry0(coef_cols, zero, *, cost=None, dual=False):
+    """Initial carry of the general-mode step: nk+1 lags, nk coefficient
+    columns, the sample counter t, then (with ``cost``) the Rice cost
+    machine state + running total, and (with ``dual``) the previous
+    residual + a second machine + its total."""
+    from . import rice as rice_mod
+    nk = len(coef_cols)
+    carry = (zero,) * (nk + 1) + tuple(coef_cols) + (jnp.int32(0),)
+    if cost is not None:
+        machine = rice_mod._init_state(zero.shape[0], cost[0]) + (zero,)
+        carry = carry + machine
+        if dual:
+            carry = carry + (zero,) + machine
+    return carry
+
+
+def _general_step(carry, x_t, *, na, nk, den, denhalf, chanbits,
+                  decode: bool, cost=None, dual: bool = False, S_eff=None):
+    """One sample step of the general-mode scan, shared by the XLA scan
+    (_scan_general) and the GPU cost kernel (pallas/cost_pallas.py).
+
+    x_t: (L,) input sample (encode) or residual (decode).  ``na`` is a
+    static int or a per-lane (L,) order; ``nk`` the static tap bound.
+    With cost=(mb0, pb, kb, wb) on encode the adaptive-Rice bit cost of
+    the residual stream accumulates in the same step
+    (rice._encode_step_tokens' length logic; the codeword values are
+    dead code), and with ``dual`` a second machine prices the
+    residuals' first difference (the stage-2 / mode != 0 cascade,
+    dp_enc.c :: pc_block numactive==31 applied to the FIR residuals).
+    Returns (new_carry, out)."""
+    static_na = isinstance(na, int)
+    nw = nk + 1
+    nc = nw + nk + 1
+    lags, coefs, t = carry[:nw], carry[nw:nw + nk], carry[nc - 1]
+    zero = jnp.zeros_like(lags[0])
+
+    if static_na:
+        top = lags[na]
+        in_warm = t <= na
+    else:
+        top = zero
+        for i in range(nk + 1):
+            top = jnp.where(na == i, lags[i], top)
+        in_warm = t <= na
+
+    sum1 = denhalf
+    for k in range(nk):
+        term = coefs[k] * (lags[k] - top)
+        sum1 = sum1 + (term if static_na else jnp.where(k < na, term, 0))
+    pred_adj = jnp.right_shift(sum1, den)
+
+    if decode:
+        out_gen = sign_extend(x_t + top + pred_adj, chanbits)
+        out_warm = sign_extend(x_t + lags[0], chanbits)
+        err = x_t                      # residual drives adaptation
+    else:
+        out_gen = sign_extend(x_t - top - pred_adj, chanbits)
+        out_warm = sign_extend(x_t - lags[0], chanbits)
+        err = out_gen
+
+    out = jnp.where(t == 0, x_t, jnp.where(in_warm, out_warm, out_gen))
+
+    # sign-sign adaptation with branchless early exit
+    adapt = ~in_warm
+    sg = sign_of_int(err)
+    del0 = err
+    new_coefs = list(coefs)
+    for k in range(nk - 1, -1, -1):
+        going = jnp.where(sg > 0, del0 > 0, del0 < 0)
+        active = adapt & (sg != 0) & going
+        if not static_na:
+            active = active & (k < na)
+        dd = top - lags[k]
+        sgn = sign_of_int(dd)
+        upd = jnp.where(sg > 0, -sgn, sgn)
+        new_coefs[k] = sign_extend(coefs[k] + jnp.where(active, upd, 0), 16)
+        mag = sgn * dd                      # |dd|
+        term = jnp.where(sg > 0,
+                         jnp.right_shift(mag, den),
+                         jnp.right_shift(-mag, den))
+        del0 = del0 - jnp.where(active, (na - k) * term, 0)
+
+    new_sample = out if decode else x_t
+    new_lags = (new_sample,) + lags[:-1]   # SSA rotation: free
+    new_carry = new_lags + tuple(new_coefs) + (t + 1,)
+    if cost is None:
+        return new_carry, out
+    from . import rice as rice_mod
+    _, pb, kb, wb = cost
+    rice_state, total = carry[nc:nc + 5], carry[nc + 5]
+    rice_state, _, lens = rice_mod._encode_step_tokens(
+        out, t, rice_state, S=S_eff, bit_size=chanbits, pb=pb, kb=kb, wb=wb)
+    tail = rice_state + (total + lens[0] + lens[1] + lens[2],)
+    if dual:
+        prev_out = carry[nc + 6]
+        rice2, total2 = carry[nc + 7:nc + 12], carry[nc + 12]
+        d = jnp.where(t == 0, out, sign_extend(out - prev_out, chanbits))
+        rice2, _, lens2 = rice_mod._encode_step_tokens(
+            d, t, rice2, S=S_eff, bit_size=chanbits, pb=pb, kb=kb, wb=wb)
+        tail = tail + (out,) + rice2 + (total2 + lens2[0] + lens2[1]
+                                        + lens2[2],)
+    return new_carry + tail, out
+
+
+def _general_costs(carry, *, nk, S: int, S_eff, chanbits, cost, dual):
+    """Final cost totals: the virtual end step (t == S) flushes a pending
+    zero-run token in each machine (rice.rice_cost's flush)."""
+    from . import rice as rice_mod
+    _, pb, kb, wb = cost
+    nc = 2 * nk + 2
+    ones = jnp.ones_like(carry[0])
+
+    def flush(state, total):
+        _, _, lens = rice_mod._encode_step_tokens(
+            ones, jnp.int32(S), state, S=S_eff, bit_size=chanbits, pb=pb,
+            kb=kb, wb=wb)
+        return total + lens[0] + lens[1] + lens[2]
+
+    totals = (flush(carry[nc:nc + 5], carry[nc + 5]),)
+    if dual:
+        totals = totals + (flush(carry[nc + 7:nc + 12], carry[nc + 12]),)
+    return totals
+
+
 def _scan_general(x_sb, coefs0, na, chanbits, denshift, *, decode: bool,
                   cost_params=None, dual_cost: bool = False,
                   na_max: int | None = None, num=None):
     """Shared general-mode scan.  x_sb: (S, B) time-major input (samples on
-    encode, residuals on decode).  Returns (out (S, B), coefs (B, 16)) or,
-    with cost_params=(mb0, pb, kb, wb) on encode, (out, coefs, cost_bits):
-    the adaptive-Rice bit cost of the residual stream accumulates inside
-    the SAME scan (rice._encode_step_tokens length logic; the codeword
-    values are dead code XLA eliminates), so the encoder's candidate
-    search runs one fused scan per candidate instead of two.
-
-    dual_cost=True additionally runs a SECOND Rice cost machine over the
-    first-difference of the residual stream (the stage-2 / mode!=0
-    cascade candidate, dp_enc.c :: pc_block numactive==31 applied to the
-    FIR residuals) and returns (out, coefs, cost_bits, cost2_bits) — the
-    whole order x stage candidate grid then costs one scan per order.
+    encode, residuals on decode).  Returns (out (S, B), coefs (B, 16)),
+    with cost_params=(mb0, pb, kb, wb) on encode also the Rice cost
+    (B,) of the residuals, and with dual_cost also the cost of their
+    first difference — the whole order x stage candidate grid then
+    costs one scan per order (see _general_step).
 
     ``num`` (per-lane (B,), <= S) restricts the COST machines to the
     first ``num`` samples of each lane — partial (tail) frames batch
@@ -69,143 +201,35 @@ def _scan_general(x_sb, coefs0, na, chanbits, denshift, *, decode: bool,
     which tails (always a stream's last packet) never commit."""
     S, B = x_sb.shape
     static_na = isinstance(na, int)
-    na_v = None if static_na else na.astype(I32)
-    denshift = jnp.asarray(denshift, dtype=I32)
-    # denshift == 0 only reachable from invalid streams (flagged upstream)
-    denshift = jnp.maximum(denshift, 1)
-    denhalf = jnp.left_shift(jnp.int32(1), denshift - 1).astype(I32)
-
-    zero = jnp.zeros((B,), dtype=I32)
-    coefs0_i = coefs0.astype(I32)
-
+    if not static_na:
+        na = na.astype(I32)
     # per-lane na: the tap loop and the ``top`` lag select only need to
     # reach the static *maximum* order present (callers pass na_max; the
-    # encoder's search grid is orders {4, 8}, so 8 instead of 16 — the
-    # same specialization the fused decode scan applies via its na<=8
-    # branch).  Bit-identical: lanes never index past their own na.
+    # encoder's search grid is orders {4, 8}).  The carry is sized to
+    # that bound too: nk+1 lags + nk coefficient columns; columns >= nk
+    # are never touched by the adaptation walk and rejoin unchanged.
+    # Bit-identical: lanes never index past their own na.
     nk = na if static_na else (na_max if na_max is not None
                                else kALACMaxCoefs)
-    # carry sized to the order bound, not the format maximum: nk+1 lag
-    # registers + nk coefficient columns instead of 17+16.  The scan
-    # carry round-trips HBM once per loop iteration, so for the
-    # production search (nk=8) this cuts the dominant per-step memory
-    # traffic by a third; columns >= nk are never touched by the
-    # adaptation walk and rejoin unchanged after the scan.
-    nw = nk + 1
-    lags0 = (zero,) * nw
-    coef_cols0 = tuple(coefs0_i[:, k] for k in range(nk))
-    if cost_params is not None:
-        assert not decode
-        from . import rice as rice_mod
-        mb0_c, pb_c, kb_c, wb_c = cost_params
+    den, denhalf = _fir_den(denshift)
+    coefs0_i = coefs0.astype(I32)
+    zero = jnp.zeros((B,), dtype=I32)
+    carry0 = _general_carry0([coefs0_i[:, k] for k in range(nk)], zero,
+                             cost=cost_params, dual=dual_cost)
     S_eff = S if num is None else num.astype(I32)
-
-    nc = nw + nk + 1  # core carry slots
-
-    def step(carry, inp):
-        if cost_params is not None:
-            rice_state, total = carry[nc:nc + 5], carry[nc + 5]
-            if dual_cost:
-                prev_out = carry[nc + 6]
-                rice2, total2 = carry[nc + 7:nc + 12], carry[nc + 12]
-            carry = carry[:nc]
-        lags, coefs, t = carry[:nw], carry[nw:nw + nk], carry[-1]
-        x_t = inp
-
-        if static_na:
-            top = lags[na]
-            in_warm = t <= na
-        else:
-            top = zero
-            for i in range(nk + 1):
-                top = jnp.where(na_v == i, lags[i], top)
-            in_warm = t <= na_v
-
-        sum1 = denhalf
-        for k in range(nk):
-            term = coefs[k] * (lags[k] - top)
-            sum1 = sum1 + (term if static_na else jnp.where(k < na_v, term, 0))
-        pred_adj = jnp.right_shift(sum1, denshift)
-
-        if decode:
-            out_gen = sign_extend(x_t + top + pred_adj, chanbits)
-            out_warm = sign_extend(x_t + lags[0], chanbits)
-            err = x_t                      # residual drives adaptation
-        else:
-            out_gen = sign_extend(x_t - top - pred_adj, chanbits)
-            out_warm = sign_extend(x_t - lags[0], chanbits)
-            err = out_gen
-
-        out = jnp.where(t == 0, x_t, jnp.where(in_warm, out_warm, out_gen))
-
-        # sign-sign adaptation with branchless early exit
-        adapt = ~in_warm
-        sg = sign_of_int(err)
-        del0 = err
-        new_coefs = list(coefs)
-        for k in range(nk - 1, -1, -1):
-            going = jnp.where(sg > 0, del0 > 0, del0 < 0)
-            active = adapt & (sg != 0) & going
-            if not static_na:
-                active = active & (k < na_v)
-            dd = top - lags[k]
-            sgn = sign_of_int(dd)
-            upd = jnp.where(sg > 0, -sgn, sgn)
-            new_coefs[k] = sign_extend(coefs[k] + jnp.where(active, upd, 0), 16)
-            mag = sgn * dd                      # |dd|
-            term = jnp.where(sg > 0,
-                             jnp.right_shift(mag, denshift),
-                             jnp.right_shift(-mag, denshift))
-            weight = (na - k) if static_na else (na_v - k)
-            del0 = del0 - jnp.where(active, weight * term, 0)
-
-        new_sample = out if decode else x_t
-        new_lags = (new_sample,) + lags[:-1]   # SSA rotation: free
-        new_carry = new_lags + tuple(new_coefs) + (t + 1,)
-        if cost_params is None:
-            return new_carry, out
-        rice_state, _, lens = rice_mod._encode_step_tokens(
-            out, t, rice_state, S=S_eff, bit_size=chanbits,
-            pb=pb_c, kb=kb_c, wb=wb_c)
-        total = total + lens[0] + lens[1] + lens[2]
-        tail = rice_state + (total,)
-        if dual_cost:
-            d = jnp.where(t == 0, out, sign_extend(out - prev_out, chanbits))
-            rice2, _, lens2 = rice_mod._encode_step_tokens(
-                d, t, rice2, S=S_eff, bit_size=chanbits,
-                pb=pb_c, kb=kb_c, wb=wb_c)
-            total2 = total2 + lens2[0] + lens2[1] + lens2[2]
-            tail = tail + (out,) + rice2 + (total2,)
-        return new_carry + tail, out
-
-    carry0 = lags0 + coef_cols0 + (jnp.int32(0),)
-    if cost_params is not None:
-        carry0 = carry0 + rice_mod._init_state(B, mb0_c) + (
-            jnp.zeros((B,), dtype=I32),)
-        if dual_cost:
-            carry0 = carry0 + (zero,) + rice_mod._init_state(B, mb0_c) + (
-                jnp.zeros((B,), dtype=I32),)
+    step = functools.partial(
+        _general_step, na=na, nk=nk, den=den, denhalf=denhalf,
+        chanbits=chanbits, decode=decode, cost=cost_params, dual=dual_cost,
+        S_eff=S_eff)
     carry_out, out_sb = jax.lax.scan(step, carry0, x_sb, unroll=_unroll())
-    # columns >= nk never adapt: rejoin the untouched originals so the
-    # returned table keeps the full (B, 16) persistent-bank shape
-    cols = list(carry_out[nw:nw + nk])
+    cols = list(carry_out[nk + 1:2 * nk + 1])
     cols += [coefs0_i[:, k] for k in range(nk, coefs0_i.shape[1])]
     coefs_out = jnp.stack(cols, axis=1)
     if cost_params is None:
         return out_sb, coefs_out
-
-    def flush(state, total):
-        # virtual end step: flush a pending zero-run token (t == S)
-        _, _, lens = rice_mod._encode_step_tokens(
-            jnp.ones((B,), dtype=I32), jnp.int32(S), state, S=S_eff,
-            bit_size=chanbits, pb=pb_c, kb=kb_c, wb=wb_c)
-        return total + lens[0] + lens[1] + lens[2]
-
-    total = flush(carry_out[nc:nc + 5], carry_out[nc + 5])
-    if not dual_cost:
-        return out_sb, coefs_out, total
-    total2 = flush(carry_out[nc + 7:nc + 12], carry_out[nc + 12])
-    return out_sb, coefs_out, total, total2
+    return (out_sb, coefs_out) + _general_costs(
+        carry_out, nk=nk, S=S, S_eff=S_eff, chanbits=chanbits,
+        cost=cost_params, dual=dual_cost)
 
 
 def _mode31(x, chanbits, decode: bool):
@@ -250,21 +274,7 @@ def _run(x, coefs0, numactive, chanbits, denshift, decode: bool):
 
 
 def pc_block(x, coefs0, numactive, chanbits, denshift=9):
-    """Batched forward prediction: (B, S) samples -> (residuals, coefs_out).
-
-    With ALACJAX_PALLAS_PREDICT_LEGACY=1 and a static order, eligible shapes route to the
-    hand-written Pallas kernel (ops/pallas/predict_pallas.py) — measured at
-    parity with this scan on v5e (both are latency-bound on the serial
-    per-sample dependency chain), kept as the tuning vehicle.
-    """
-    from . import pallas as pallas_cfg
-    if (pallas_cfg.predict_legacy_enabled() and isinstance(numactive, int)
-            and 0 < numactive <= kALACMaxCoefs
-            and isinstance(denshift, int) and isinstance(chanbits, int)):
-        from .pallas.predict_pallas import LANE_TILE, S_CHUNK, pc_block_pallas
-        B, S = x.shape
-        if B % LANE_TILE == 0 and S % S_CHUNK == 0 and coefs0 is not None:
-            return pc_block_pallas(x, coefs0, numactive, chanbits, denshift)
+    """Batched forward prediction: (B, S) samples -> (residuals, coefs_out)."""
     return _run(x, coefs0, numactive, chanbits, denshift, decode=False)
 
 
@@ -286,25 +296,28 @@ def pc_block_cost(x, coefs0, numactive: int, chanbits: int, denshift: int,
     return res, cost
 
 
-def _cost_kernel_ok(x, numactive, chanbits, denshift) -> bool:
-    """Route to the fused Pallas cost kernel (ops/pallas/cost_pallas.py)
-    on real TPU backends when the shape fits its envelope; the XLA scan
-    stays the fallback (and the CPU test tier's default — interpret-mode
-    parity is tested separately).  ALACJAX_PALLAS_COST forces either
-    way."""
-    env = _os.environ.get("ALACJAX_PALLAS_COST")
-    if env is not None and env != "1":
+def _cost_kernel_ok(numactive, denshift) -> bool:
+    """Route the fused predict + cost scan to the GPU kernel
+    (pallas/cost_pallas.py): on the GPU backend, with a static denshift
+    and a general-mode order (orders 0 and 31 are closed forms).  Any S
+    and lane count fit (lanes are padded to the kernel's block)."""
+    if not pallas.gpu_kernels() or not isinstance(denshift, int):
         return False
-    if env is None:
-        import jax as _jax
-        if _jax.default_backend() in ("cpu",):
-            return False
-    if not isinstance(denshift, int):
-        return False   # chanbits may be per-lane (the kernel takes a tile)
-    if isinstance(numactive, int) and numactive in (0, 31):
-        return False
-    from .pallas.cost_pallas import S_CHUNK
-    return x.shape[1] % S_CHUNK == 0
+    return not (isinstance(numactive, int) and numactive in (0, 31))
+
+
+def _closed_form_costs(x, coefs0, numactive, chanbits, denshift, mb0, pb,
+                       kb, wb, num, dual):
+    """Orders 0 and 31 (no adaptive walk): residuals in closed form, then
+    the Rice cost scan(s)."""
+    from . import rice as rice_mod
+    res, coefs = _run(x, coefs0, numactive, chanbits, denshift,
+                      decode=False)
+    costs = (rice_mod.rice_cost(res, chanbits, mb0, pb, kb, wb, num=num),)
+    if dual:
+        costs += (rice_mod.rice_cost(wrap_diff(res, chanbits), chanbits,
+                                     mb0, pb, kb, wb, num=num),)
+    return (res,) + costs + (coefs,)
 
 
 def pc_block_cost_coefs(x, coefs0, numactive: int, chanbits: int,
@@ -313,30 +326,18 @@ def pc_block_cost_coefs(x, coefs0, numactive: int, chanbits: int,
     """pc_block_cost that also returns the adapted coefficients (B, 16)
     (needed by the persistent-bank stream encoder, ALACEncoder.cpp's
     mCoefsU/V members surviving across packets)."""
-    from . import pallas as pallas_cfg
-    if (not pallas_cfg.predict_legacy_enabled()
-            and _cost_kernel_ok(x, numactive, chanbits, denshift)):
-        from .pallas.cost_pallas import pc_block_cost2_pallas
-        if coefs0 is None:
-            coefs0 = jnp.zeros((x.shape[0], kALACMaxCoefs), dtype=I32)
-        res, c1, _, coefs = pc_block_cost2_pallas(
-            x.astype(I32), coefs0, numactive, chanbits, denshift,
-            mb0, pb, kb, wb, na_max=(numactive if isinstance(numactive, int)
-                                     else kALACMaxCoefs),
-            num=num, dual=False)
-        return res, c1, coefs
-    if pallas_cfg.predict_legacy_enabled():
-        from . import rice as rice_mod
-        res, coefs = pc_block(x, coefs0, numactive, chanbits, denshift)
-        return res, rice_mod.rice_cost(res, chanbits, mb0, pb, kb, wb,
-                                       num=num), coefs
     x = x.astype(I32)
-    if numactive in (0, 31):
-        from . import rice as rice_mod
-        res, coefs = _run(x, coefs0, numactive, chanbits, denshift,
-                          decode=False)
-        return res, rice_mod.rice_cost(res, chanbits, mb0, pb, kb, wb,
-                                       num=num), coefs
+    if coefs0 is None:
+        coefs0 = jnp.zeros((x.shape[0], kALACMaxCoefs), dtype=I32)
+    if isinstance(numactive, int) and numactive in (0, 31):
+        return _closed_form_costs(x, coefs0, numactive, chanbits, denshift,
+                                  mb0, pb, kb, wb, num, dual=False)
+    if _cost_kernel_ok(numactive, denshift):
+        from .pallas.cost_pallas import pc_block_cost2_pallas
+        res, c1, _, coefs = pc_block_cost2_pallas(
+            x, coefs0, numactive, chanbits, denshift, mb0, pb, kb, wb,
+            na_max=numactive, num=num, dual=False)
+        return res, c1, coefs
     out_sb, coefs, cost = _scan_general(
         x.T, coefs0, numactive, chanbits, denshift, decode=False,
         cost_params=(mb0, pb, kb, wb), num=num)
@@ -369,29 +370,22 @@ def pc_block_cost2(x, coefs0, numactive, chanbits: int, denshift: int,
     scan this way (fewer sequential scans beats the masked-tap overhead:
     the scans are latency-bound, not lane-bound).
     """
-    from . import pallas as pallas_cfg
     x = x.astype(I32)
+    if coefs0 is None:
+        coefs0 = jnp.zeros((x.shape[0], kALACMaxCoefs), dtype=I32)
     static_na = isinstance(numactive, int)
-    if pallas_cfg.predict_legacy_enabled() or (static_na and numactive in (0, 31)):
-        from . import rice as rice_mod
-        res, coefs = pc_block(x, coefs0, numactive, chanbits, denshift)
-        return (res, rice_mod.rice_cost(res, chanbits, mb0, pb, kb, wb,
-                                        num=num),
-                rice_mod.rice_cost(wrap_diff(res, chanbits), chanbits,
-                                   mb0, pb, kb, wb, num=num), coefs)
-    if _cost_kernel_ok(x, numactive, chanbits, denshift):
-        from .pallas.cost_pallas import pc_block_cost2_pallas
-        if coefs0 is None:
-            coefs0 = jnp.zeros((x.shape[0], kALACMaxCoefs), dtype=I32)
-        nm = (numactive if static_na
-              else (na_max if na_max is not None else kALACMaxCoefs))
-        return pc_block_cost2_pallas(
-            x, coefs0, numactive if static_na else numactive.astype(I32),
-            chanbits, denshift, mb0, pb, kb, wb, na_max=nm, num=num,
-            dual=True)
+    if static_na and numactive in (0, 31):
+        return _closed_form_costs(x, coefs0, numactive, chanbits, denshift,
+                                  mb0, pb, kb, wb, num, dual=True)
     na = numactive if static_na else numactive.astype(I32)
+    nk = na if static_na else (na_max if na_max is not None
+                               else kALACMaxCoefs)
+    if _cost_kernel_ok(numactive, denshift):
+        from .pallas.cost_pallas import pc_block_cost2_pallas
+        return pc_block_cost2_pallas(
+            x, coefs0, na, chanbits, denshift, mb0, pb, kb, wb, na_max=nk,
+            num=num, dual=True)
     out_sb, coefs, cost, cost2 = _scan_general(
         x.T, coefs0, na, chanbits, denshift, decode=False,
-        cost_params=(mb0, pb, kb, wb), dual_cost=True, na_max=na_max,
-        num=num)
+        cost_params=(mb0, pb, kb, wb), dual_cost=True, na_max=nk, num=num)
     return out_sb.T, cost, cost2, coefs

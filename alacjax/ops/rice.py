@@ -33,23 +33,18 @@ from .jaxutils import I32, U32, clz32, iota1, lg3a
 # executable constant, which this jax build loses on repeat calls
 _U32_ONE = np.uint32(1)
 
-import os as _os
 from .predict import _unroll  # lazy env read; see ops/predict.py
 
 
 def _divmod_capped(n, m):
     """(min(n // m, 9), n mod m — exact for quotients <= 8).
 
-    TPU has no integer divide (XLA emulates ``u32 //`` with a long
-    serial sequence), and quotients only matter up to the escape
-    threshold 9 (MAX_PREFIX_32), so the capped quotient is a PARALLEL
-    threshold count: div = sum_j [n >= j*m], j = 1..9 — a depth-4 tree
-    of adds/compares instead of the emulated divide.  div >= 9 lanes
-    escape and never read the remainder.  m <= 2^kb - 1 = 16383
-    (types.KB0 caps k for both codeword machines), so 9*m cannot wrap
-    u32.  History: a 9-step conditional-SUBTRACTION chain lost to the
-    divide because it was serial (end-to-end 637 -> 430 f/s); this
-    formulation has no serial dependency.
+    Quotients only matter up to the escape threshold 9
+    (MAX_PREFIX_32), so the capped quotient is a PARALLEL threshold
+    count: div = sum_j [n >= j*m], j = 1..9 — a depth-4 tree of
+    adds/compares with no serial dependency.  div >= 9 lanes escape and
+    never read the remainder.  m <= 2^kb - 1 = 16383 (types.KB0 caps k
+    for both codeword machines), so 9*m cannot wrap u32.
     """
     m2 = m + m
     m3 = m2 + m
@@ -249,6 +244,70 @@ def _append_bits(acc, fill, wcount, v, L):
     return acc2, fill2, wcount2, out_word, ge
 
 
+def _emit_slots(cap: int) -> int:
+    """Emission slots per step: at most floor((31 + run<=25 + prefix 9
+    + bit_size)/32) words complete per step; +1 slot headroom for the
+    virtual-step flush."""
+    return (31 + 25 + MAX_PREFIX_32 + cap) // 32
+
+
+def _emit_state0(start_bits, mb0: int):
+    """Emission state: Rice machine, word accumulator seeded with the
+    stream's bit phase, fill, completed-word count."""
+    B = start_bits.shape[0]
+    return (_init_state(B, mb0), jnp.zeros((B,), U32), start_bits & 31,
+            jnp.zeros((B,), I32))
+
+
+def _emit_step(state, x, t, *, S: int, S_eff, bit_size, pb, kb: int,
+               wb: int, base_word, n_slots: int, emit_flush: bool):
+    """One emission step, shared by the XLA scan (rice_encode_words) and
+    the GPU kernel (pallas/emit_pallas.py): the token machine's (up to
+    three) tokens appended to the word accumulator; completed words land
+    in ``n_slots`` (word, absolute key) slots, empty slots keyed
+    0xFFFFFFFF.  t == S is the virtual end step."""
+    rice_state, acc, fill, wcount = state
+    rice_state, vals, lens = _encode_step_tokens(
+        x, t, rice_state, S=S_eff, bit_size=bit_size, pb=pb, kb=kb, wb=wb)
+    zero = jnp.zeros_like(acc)
+    slot_w = [zero] * n_slots
+    slot_k = [zero | jnp.uint32(0xFFFFFFFF)] * n_slots
+    n_emitted = jnp.zeros_like(fill)
+    for v, L in zip(vals, lens):
+        key = (base_word + wcount).astype(U32)
+        acc, fill, wcount, w, emit = _append_bits(acc, fill, wcount, v, L)
+        for si in range(n_slots):
+            hit = emit & (n_emitted == si)
+            slot_w[si] = jnp.where(hit, w, slot_w[si])
+            slot_k[si] = jnp.where(hit, key, slot_k[si])
+        n_emitted = n_emitted + emit.astype(I32)
+    if emit_flush:
+        # final flush on the virtual step (only the run token can emit
+        # there, so a free slot always exists)
+        flush = (t == S) & (fill > 0)
+        fkey = (base_word + wcount).astype(U32)
+        for si in range(n_slots):
+            hit = flush & (n_emitted == si)
+            slot_w[si] = jnp.where(hit, acc, slot_w[si])
+            slot_k[si] = jnp.where(hit, fkey, slot_k[si])
+    return (rice_state, acc, fill, wcount), (tuple(slot_w), tuple(slot_k))
+
+
+def _emit_finish(state, base_word):
+    """(end_bits, tail_val, tail_key) from the final emission state."""
+    _, acc, fill, wcount = state
+    end_bits = (base_word + wcount) * 32 + fill
+    tail_val = jnp.where(fill > 0, acc, jnp.uint32(0))
+    return end_bits, tail_val, (base_word + wcount).astype(U32)
+
+
+def _emit_kernel_ok(emit_flush: bool) -> bool:
+    """Route the emission scan to the GPU kernel (pallas/emit_pallas.py):
+    the production mode (emit_flush=False) on the GPU backend."""
+    from . import pallas
+    return not emit_flush and pallas.gpu_kernels()
+
+
 def rice_encode_words(res, bit_size, mb0: int, pb, kb: int, wb: int,
                       start_bits, bit_size_cap: int | None = None,
                       emit_flush: bool = True, num=None):
@@ -281,77 +340,33 @@ def rice_encode_words(res, bit_size, mb0: int, pb, kb: int, wb: int,
     position of the stream, tail_val (B,) u32, tail_key (B,) u32).
     """
     B, S = res.shape
-    if not emit_flush:
-        # route to the Mosaic emission kernel on TPU backends (the XLA
-        # while body fragments into ~24 fusions/iteration; the kernel
-        # runs the whole loop as one launch) — same gating rule as the
-        # cost kernel (ops/predict._cost_kernel_ok)
-        from .pallas.cost_pallas import S_CHUNK as _SC
-        env = _os.environ.get("ALACJAX_PALLAS_COST")
-        use = env == "1" if env is not None else None
-        if use is None:
-            import jax as _jax
-            use = _jax.default_backend() not in ("cpu",)
-        if use and S % _SC == 0:
-            from .pallas.emit_pallas import rice_encode_words_pallas
-            return rice_encode_words_pallas(
-                res, bit_size, mb0, pb, kb, wb, start_bits,
-                bit_size_cap=bit_size_cap, num=num)
+    cap = bit_size if isinstance(bit_size, int) else int(bit_size_cap)
+    if _emit_kernel_ok(emit_flush):
+        from .pallas.emit_pallas import rice_encode_words_pallas
+        return rice_encode_words_pallas(
+            res, bit_size, mb0, pb, kb, wb, start_bits, bit_size_cap=cap,
+            num=num)
     S_eff = S if num is None else num
     start_bits = jnp.asarray(start_bits, I32)
     base_word = start_bits >> 5
     xs = jnp.concatenate([res.astype(I32).T,
                           jnp.ones((1, B), dtype=I32)], axis=0)
     ts = iota1(S + 1)
-    INF = jnp.uint32(0xFFFFFFFF)
-
-    # at most floor((31 + run<=25 + prefix 9 + bit_size)/32) words can
-    # complete per step; +1 slot headroom for the virtual-step flush
-    cap = bit_size if isinstance(bit_size, int) else int(bit_size_cap)
-    n_slots = (31 + 25 + MAX_PREFIX_32 + cap) // 32
+    n_slots = _emit_slots(cap)
 
     def step(state, inp):
         x, t = inp
-        rice_state, acc, fill, wcount = state[0], state[1], state[2], state[3]
-        rice_state, vals, lens = _encode_step_tokens(
-            x, t, rice_state, S=S_eff, bit_size=bit_size, pb=pb, kb=kb,
-            wb=wb)
-        slot_w = [jnp.zeros((B,), U32) for _ in range(n_slots)]
-        slot_k = [jnp.full((B,), 0xFFFFFFFF, U32) for _ in range(n_slots)]
-        n_emitted = jnp.zeros((B,), I32)
-        for v, L in zip(vals, lens):
-            key = (base_word + wcount).astype(U32)
-            acc, fill, wcount, w, emit = _append_bits(acc, fill, wcount, v, L)
-            for si in range(n_slots):
-                hit = emit & (n_emitted == si)
-                slot_w[si] = jnp.where(hit, w, slot_w[si])
-                slot_k[si] = jnp.where(hit, key, slot_k[si])
-            n_emitted = n_emitted + emit.astype(I32)
-        if emit_flush:
-            # final flush on the virtual step (only the run token can
-            # emit there, so a free slot always exists)
-            flush = (t == S) & (fill > 0)
-            fkey = (base_word + wcount).astype(U32)
-            for si in range(n_slots):
-                hit = flush & (n_emitted == si)
-                slot_w[si] = jnp.where(hit, acc, slot_w[si])
-                slot_k[si] = jnp.where(hit, fkey, slot_k[si])
-        return ((rice_state, acc, fill, wcount),
-                (tuple(slot_w), tuple(slot_k)))
+        return _emit_step(state, x, t, S=S, S_eff=S_eff, bit_size=bit_size,
+                          pb=pb, kb=kb, wb=wb, base_word=base_word,
+                          n_slots=n_slots, emit_flush=emit_flush)
 
-    state0 = (_init_state(B, mb0), jnp.zeros((B,), U32),
-              start_bits & 31, jnp.zeros((B,), I32))
-    (rice_state, acc, fill, wcount), (ws, ks) = jax.lax.scan(
-        step, state0, (xs, ts), unroll=_unroll())
+    state, (ws, ks) = jax.lax.scan(
+        step, _emit_state0(start_bits, mb0), (xs, ts), unroll=_unroll())
 
     # (S+1, B, n_slots) -> (B, n_slots*(S+1)) in stream order
     words = jnp.transpose(jnp.stack(ws, axis=-1), (1, 0, 2)).reshape(B, -1)
     keys = jnp.transpose(jnp.stack(ks, axis=-1), (1, 0, 2)).reshape(B, -1)
-    # total bits consumed: final absolute position
-    end_bits = (base_word + wcount) * 32 + fill
-    tail_val = jnp.where(fill > 0, acc, jnp.uint32(0))
-    tail_key = (base_word + wcount).astype(U32)
-    return words, keys, end_bits, tail_val, tail_key
+    return (words, keys) + _emit_finish(state, base_word)
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +382,7 @@ def _peek32(words, bitpos):
     bp = bitpos[:, None] if squeeze else bitpos
     w = (bp >> 5).astype(I32)
     sh = (bp & 31).astype(U32)
-    # flat 1-D gather (row*W + col) lowers better than per-row
-    # take_along_axis on TPU
+    # flat 1-D gather (row*W + col)
     flat = words.reshape(-1)
     rows = iota1(B)[:, None] * W
     i0 = rows + jnp.clip(w, 0, W - 1)

@@ -1,10 +1,10 @@
 """Frame-axis sharding over a device mesh.
 
-Encode/decode kernels are per-frame-lane pure, so a 1-D ``frames`` mesh
-axis scales them to N chips with XLA inserting only the input scatter /
-output gather.  The packet-table byte-count reduction (the one real
-collective in the system, SURVEY.md §5) is exposed as a psum inside the
-sharded step so multi-chip compilation exercises ICI.
+Encode/decode programs are per-frame-lane pure, so a 1-D ``frames`` mesh
+axis scales them to N devices: each runs per shard under ``shard_map``
+(codec.shard_frames).  The packet-table byte-count reduction (the one
+real collective in the system, SURVEY.md §5) is a psum inside the
+sharded round-trip step, outside the kernels.
 """
 
 from __future__ import annotations
@@ -52,11 +52,9 @@ class ShardedCodec(_codec.JaxCodec):
         repl = NamedSharding(self.mesh, P())
 
         def train_step(pcm):
-            """Full round-trip step: encode -> byte stats psum -> decode.
-
-            This is the 'training step' analog for the codec: the complete
-            compute pipeline plus the only collective the system needs
-            (packet-table byte accounting over the frames axis).  Returns
+            """Full round-trip step on one shard: encode -> decode, with
+            the byte total and the mismatch count summed over the frames
+            axis (the 'training step' analog for the codec).  Returns
             the encoded words/bits too so callers can assert byte-parity
             against the host implementations without a second program.
             """
@@ -64,13 +62,18 @@ class ShardedCodec(_codec.JaxCodec):
                 pcm, config=config, num_words=self.num_words)
             decoded, err, _num = _codec.decode_frames_device(
                 words, config=config, num_samples=S)
-            total_bytes = jnp.sum((bits + 7) // 8)
-            mismatch = jnp.sum((decoded != pcm.astype(jnp.int32))
-                               .astype(jnp.int32))
+            total_bytes = jax.lax.psum(jnp.sum((bits + 7) // 8),
+                                       FRAMES_AXIS)
+            mismatch = jax.lax.psum(
+                jnp.sum((decoded != pcm.astype(jnp.int32))
+                        .astype(jnp.int32)), FRAMES_AXIS)
             return decoded, words, bits, total_bytes, mismatch, err
 
+        frames = P(FRAMES_AXIS)
         self._roundtrip = jax.jit(
-            train_step,
+            _codec.shard_frames(
+                train_step, self.mesh,
+                out_specs=(frames, frames, frames, P(), P(), frames)),
             in_shardings=(shard,),
             out_shardings=(shard, shard, shard, repl, repl, shard),
         )

@@ -1,6 +1,6 @@
-"""Shared types, enums, constants and error codes for the ALAC TPU codec.
+"""Shared types, enums, constants and error codes for the ALAC codec.
 
-TPU-native rebuild of the vocabulary defined by the reference header
+Rebuild of the vocabulary defined by the reference header
 ``codec/ALACAudioTypes.h`` (see SURVEY.md §2 row 1).  Everything here is
 host-side configuration; device code receives plain integers derived from
 these values so that jit specialization stays static.

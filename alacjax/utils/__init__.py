@@ -1,8 +1,8 @@
 """Utilities: structured metrics, logging, profiling annotations.
 
 The reference has no observability at all (SURVEY.md §5); this package
-provides the TPU-native equivalents: jax.profiler stage annotations,
-per-run structured reports, and a dependency-free logger.
+provides jax.profiler stage annotations, per-run structured reports, a
+dependency-free logger, and the compile-cache placement.
 """
 
 from .metrics import StreamReport, StageTimer, stage_annotation

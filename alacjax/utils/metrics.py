@@ -3,7 +3,7 @@ metrics/observability row).
 
 StreamReport aggregates what the reference tracked internally
 (mTotalBytesGenerated / mMaxFrameBytes / mAvgBitRate) plus the
-TPU-relevant counters: frames/sec/chip, escape-frame rate, compression
+device counters: frames/sec/chip, escape-frame rate, compression
 ratio, and per-stage wall-clock shares.
 """
 

@@ -1,6 +1,6 @@
 """Compression-rate benchmark: our standard search vs the exhaustive bound.
 
-VERDICT r01 item 3: "matching the reference" includes matching its rate.
+"Matching the reference" includes matching its compression rate.
 The reference's encoder searches with subsampled (dilated) trials
 (codec/ALACEncoder.cpp :: EncodeStereo); our standard dialect does the
 same (exact dilated mixres trial + exact per-channel order x stage
@@ -30,7 +30,7 @@ S = 4096
 
 # (name, config kwargs, content class).  The first five are the
 # BASELINE.json configs on smooth sine-mixture "music"; the last three
-# are VERDICT r02 item 8's hard deterministic content — the search
+# are hard deterministic content — the search
 # decisions (mixres, order, stage, escape) actually differ on
 # transient/decorrelated/ramping material, so the dilated-vs-exhaustive
 # delta is measured where it is largest, not where it is easiest.

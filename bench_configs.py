@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Benchmark the five BASELINE.json configs on the attached chip.
+"""Benchmark the five BASELINE.json configs on one GPU.
 
 Unlike bench.py (one JSON line for the driver), this prints one line per
 config — the judge-facing coverage table.  Every run is gated on exact
@@ -44,12 +44,10 @@ CONFIGS = [
 
 
 def main() -> int:
-    from bench import require_backend
-    require_backend()
-    import jax
-    import os
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache"))
+    from alacjax.utils.compile_cache import place_compile_cache
+    from bench import require_gpu
+    place_compile_cache()
+    require_gpu()
     import jax.numpy as jnp
     from alacjax.codec import get_codec
     from alacjax.types import AlacConfig
@@ -60,7 +58,7 @@ def main() -> int:
 
     for name, kw, kind in CONFIGS:
         cfg = AlacConfig(frame_length=S, **kw)
-        codec = get_codec(cfg, chunk=B)
+        codec = get_codec(cfg, chunk=B, devices=1)
         pcm = gen("escape" if kind == "escape" else "music",
                   B, S, cfg.num_channels, cfg.bit_depth)
         x = jnp.asarray(pcm.astype(np.int32))

@@ -2,7 +2,7 @@
  * (FFmpeg, an implementation written from the same public spec/code drop
  * as ours but sharing no code with this repo) from the test suite.
  *
- * Purpose (SURVEY.md §4 item 4, VERDICT r02 missing item 1): with
+ * Purpose (SURVEY.md §4 item 4): with
  * /root/reference an empty mount, bit-exact parity against the real
  * reference binary is unprovable — an independent decoder accepting our
  * streams losslessly, and our decoder accepting an independent

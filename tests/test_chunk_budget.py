@@ -1,4 +1,4 @@
-"""merge_sorted_chunks invariant verification (successor of the r2
+"""merge_sorted_chunks invariant verification (successor of the
 combine_chunks dup-budget check).
 
 The sort-free merge requires that per lane the non-empty chunk keys are

@@ -109,8 +109,8 @@ def test_device_decode_flags_corrupt_headers_and_falls_back(rng):
 @pytest.mark.parametrize("depth,nch", [(16, 2), (24, 2), (16, 6), (32, 2)])
 def test_device_partial_frames_byte_identical_to_oracle(rng, depth, nch):
     """Partial (tail) frames encode ON DEVICE, batched with full frames
-    via per-lane sample counts, byte-identical to the oracle (VERDICT
-    r02 item 3; reference: ALACEncoder.cpp Encode partial-frame path) —
+    via per-lane sample counts, byte-identical to the oracle
+    (reference: ALACEncoder.cpp Encode partial-frame path) —
     and the device decoder eats them back in the same batch."""
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=S)
     nums = np.array([S, 5, 100, S - 1, 1, 77], np.int32)
@@ -183,7 +183,7 @@ def test_cli_jax_backend(rng, tmp_path):
 
 def test_device_persistent_stream_matches_stateful_oracle(rng):
     """encode_streams chains packets through the coefficient banks inside
-    a lax.scan (VERDICT r01 item 6): byte-identical to the stateful
+    a lax.scan: byte-identical to the stateful
     ALACEncoder(cfg) on every packet of every stream."""
     from alacjax.codec import encode_streams
 

@@ -1,4 +1,4 @@
-"""Fast-tier device-codec smoke test (VERDICT r2 item 9).
+"""Fast-tier device-codec smoke test.
 
 One tiny S=64 encode+decode round-trip through the full jax device
 pipeline (search, emission, merge, fused decode) so gross device-path

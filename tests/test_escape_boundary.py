@@ -1,4 +1,4 @@
-"""Escape-vs-compressed boundary conformance (VERDICT r2 item 4).
+"""Escape-vs-compressed boundary conformance.
 
 The escape decision (comp_bits >= esc_bits) is computed independently in
 three implementations (oracle/encoder.py, codec.py, alac_host.cpp) with

@@ -150,7 +150,7 @@ def test_fuzz_partial_frames_random_params():
     """Partial (tail) frames — every real stream's last packet — with
     randomized legal parameters and random per-packet sample counts,
     batched together with full frames: the per-lane num mask must ride
-    the device scans (round-3 device-native partial decode) and agree
+    the device scans (device-native partial decode) and agree
     with the oracle and native decoders sample-for-sample."""
     cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=S)
     rng = np.random.default_rng(500)

@@ -1,6 +1,6 @@
 """Full-frame (S=4096) pathological content through the device codec.
 
-VERDICT r01 weak-item 4 / r02 item 5: the decode scan's group/cache-refill
+The decode scan's group/cache-refill
 machinery (fused_decode block cache, G-sample substep groups) and the
 depth-specific closed-form arithmetic (shift-byte block offsets, escape
 extraction strides) have boundary conditions only full-length frames with

@@ -82,7 +82,7 @@ def test_get_codec_auto_shards_byte_identical(rng, mesh):
 
 def test_cli_devices_flag_byte_identical(rng, tmp_path, monkeypatch):
     """python -m alacjax.cli --devices 8 output == --devices 1 output
-    (multi-chip is config, not code — VERDICT r3 item 6)."""
+    (multi-device is config, not code)."""
     if len(jax.devices()) < 2:
         pytest.skip("needs the multi-device CPU simulation")
     from alacjax.cli import main

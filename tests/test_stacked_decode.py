@@ -3,10 +3,9 @@
 The two-pass decode — a cheap Rice-cursor scan per channel breaks the
 cross-channel chain, then ONE stacked fused scan reconstructs every
 channel (codec._stacked_decode, fused_decode.cursor_scan) — is parked
-OPT-IN (ALACJAX_DECODE_STACKED=1): it measured ~1.9x slower than the
-chained scans at every layout (see _stacked_decode's docstring).  Kept
-bit-identical and tested, like the parked Mosaic decode kernel: both
-programs must produce identical samples/err/num on every content class
+OPT-IN (ALACJAX_DECODE_STACKED=1): it lost to the chained scans at
+every layout before the GPU port (see _stacked_decode's docstring).
+Kept bit-identical and tested: both programs must produce identical samples/err/num on every content class
 — including escape lanes (cursor skip) and partial tails (num mask).
 The reference decodes channels strictly serially
 (codec/ALACDecoder.cpp :: Decode element loop).
